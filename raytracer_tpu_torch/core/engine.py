@@ -1,0 +1,272 @@
+"""The RayTracer engine: progressive additive rendering and batch
+rendering over the fused wavefront (PyTorch port of
+``raytracer_tpu/core/engine.py``).
+
+Capability parity with the reference render loop (reference:
+raytracer_lib/src/raytracer/mod.rs:32-129):
+
+- `trace_frame_additive()` renders `rows_per_frame` (default 50,
+  mod.rs:87) rows, one jittered sample per pixel, additively into the
+  film, advancing a progressive row cursor with wraparound
+  (mod.rs:80-117), and returns the number of primary rays traced.
+- `get_tonemapped_pixels()` = film mean -> Reinhard -> packed u32
+  (mod.rs:120-129).
+- Camera motion helpers clear the film (raytracer/src/main.rs:123-163).
+- `render(spp)` is the batch API: whole frames, `pool` samples per
+  wavefront, rays in 16x8 pixel tiles.
+
+Known reference bug, reproduced only behind `compat_v_bug=True`: the
+reference computes the pixel row for ray generation as `idx / height`
+instead of `idx / width` (mod.rs:96).
+
+Random numbers come from a draw source: `next_sample(n)` returns the
+(n, 2) pixel jitter of one sample and that sample's Gaussian stream
+(`normal(level, n) -> (n, 3)`).  The default `TorchDraws` draws both
+from a `torch.Generator` on the render device, seeded from `seed`.
+Public return types are numpy, as in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.core.film import Film
+from raytracer_tpu_torch.core.shade import build_slot_records
+from raytracer_tpu_torch.core.tonemap import pack_u32, simple_map
+from raytracer_tpu_torch.core.wavefront import (RECURSIONS, SORT_KEY_MODES,
+                                                SORT_PAYLOADS, SUB_SPREAD,
+                                                trace_radiance_fused)
+from raytracer_tpu_torch.models.camera import generate_rays
+from raytracer_tpu_torch.models.types import resolve_device
+from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
+
+# reference: oct_tree_intersector.rs:12
+DEFAULT_TRIANGLES_PER_LEAF = 70
+
+# samples pooled per wavefront on the fused path (the reference's
+# measured default, engine.py:326-338)
+DEFAULT_POOL = 8
+
+
+class TorchDraws:
+    """The product draw source: jitter and Gaussians from one
+    `torch.Generator` on the render device, seeded from `seed`."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def next_sample(self, n: int):
+        jitter = torch.rand((n, 2), generator=self.generator,
+                            device=self.device)
+        return jitter, self
+
+    def normal(self, level: int, n: int):
+        return torch.randn((n, 3), generator=self.generator,
+                           device=self.device)
+
+
+class RayTracer:
+    def __init__(self, scene, width: int, height: int,
+                 triangles_per_leaf: int = DEFAULT_TRIANGLES_PER_LEAF,
+                 accel: str = "bvh",
+                 recursions: int = RECURSIONS, spread: int = SUB_SPREAD,
+                 rows_per_frame: int = 50,
+                 compat_v_bug: bool = False,
+                 sort_key_mode: str = "dir6",
+                 accel_opts: dict | None = None,
+                 spp_pool: int | None = None,
+                 sort_payload: str = "ride",
+                 seed: int = 0,
+                 device=None,
+                 draws=None):
+        if accel != "bvh":
+            raise ValueError(f"accel {accel!r} is not ported; use 'bvh'")
+        if sort_key_mode not in SORT_KEY_MODES:
+            raise ValueError(f"unknown sort_key_mode {sort_key_mode!r}")
+        if sort_payload not in SORT_PAYLOADS:
+            raise ValueError(f"unknown sort_payload {sort_payload!r}")
+        if not scene.cameras:
+            raise ValueError("scene has no camera (reference uses scene.cameras[0], lib.rs:36)")
+        self.device = resolve_device(device)
+        self.width = width
+        self.height = height
+        self.scene = scene
+        self.scene_buffers = scene.to_buffers()
+        self.scene_arrays = self.scene_buffers.to_device(self.device)
+        self.camera = scene.cameras[0]
+        self.film = Film(width * height, self.device)
+        self.current_row = 0
+        self.rows_per_frame = rows_per_frame
+        self.recursions = recursions
+        self.spread = spread
+        self.compat_v_bug = compat_v_bug
+        self.sort_key_mode = sort_key_mode
+        self.sort_payload = sort_payload
+        self.spp_pool = spp_pool
+        self.intersector = BVHIntersector(
+            self.scene_buffers, triangles_per_leaf=triangles_per_leaf,
+            device=self.device, **(accel_opts or {}))
+        # full record format: normal xyz + diffuse rgb (+ tex id)
+        has_tex = bool((self.scene_buffers.mat_tex_id >= 0).any())
+        records = build_slot_records(self.scene_arrays,
+                                     self.intersector.perm,
+                                     self.intersector.perm.shape[0])
+        self.intersector.set_shade_records(records[:, :7 if has_tex else 6])
+        self.draws = draws if draws is not None else TorchDraws(seed,
+                                                                self.device)
+        self._row_block_cache = {}
+        self._frame_pixels = None
+
+    @classmethod
+    def from_scene(cls, scene, width, height, **kwargs):
+        """reference: build_raytracer (lib.rs:29-44)"""
+        return cls(scene, width, height, **kwargs)
+
+    def _radiance(self, origins, dirs, streams, pool):
+        return trace_radiance_fused(
+            self.scene_arrays, origins, dirs, streams, self.intersector,
+            self.recursions, self.spread, sort_key_mode=self.sort_key_mode,
+            pool=pool, sort_payload=self.sort_payload)
+
+    # Spatial tile size for ray ordering: rays that share a kernel block
+    # come from a compact 16x8 pixel tile, so culling acts on coherent
+    # bundles instead of scanline strips.
+    TILE_W, TILE_H = 16, 8
+
+    def _row_block(self):
+        """Pixel coordinates for the next `rows_per_frame` rows,
+        tile-swizzled.  Cached per cursor position."""
+        cached = self._row_block_cache.get(self.current_row)
+        if cached is not None:
+            return cached
+        rows = (self.current_row + np.arange(self.rows_per_frame)) % self.height
+        px = np.tile(np.arange(self.width, dtype=np.int32), self.rows_per_frame)
+        py_actual = np.repeat(rows.astype(np.int32), self.width)
+        order = np.lexsort((px % self.TILE_W, py_actual % self.TILE_H,
+                            px // self.TILE_W, py_actual // self.TILE_H))
+        px, py_actual = px[order], py_actual[order]
+        idx = py_actual * self.width + px
+        if self.compat_v_bug:
+            # mod.rs:96 — v = idx / height with idx = row*width + i
+            py_ray = (idx // self.height).astype(np.int32)
+        else:
+            py_ray = py_actual
+        out = tuple(torch.from_numpy(a).to(self.device)
+                    for a in (px, py_ray, idx.astype(np.int64)))
+        self._row_block_cache[self.current_row] = out
+        return out
+
+    # -- reference API ----------------------------------------------------
+
+    def trace_frame_additive(self) -> int:
+        """One progressive frame: rows_per_frame rows, 1 spp, additive
+        (mod.rs:80-117).  Returns num primary rays (= rows * width)."""
+        px, py, idx = self._row_block()
+        jitter, stream = self.draws.next_sample(px.shape[0])
+        o, d = generate_rays(self.camera.params(self.device), px, py,
+                             jitter.to(self.device), self.width, self.height)
+        radiance = self._radiance(o, d, [stream], 1)
+        self.film.add_samples(idx, radiance)
+        self.current_row = (self.current_row + self.rows_per_frame) % self.height
+        return self.rows_per_frame * self.width
+
+    def get_tonemapped_pixels(self) -> np.ndarray:
+        """Film mean -> Reinhard -> 0xAARRGGBB u32 (mod.rs:120-129)."""
+        hdr = self.film.get_pixels()
+        return pack_u32(simple_map(hdr)).cpu().numpy().astype(np.uint32)
+
+    # -- camera controls (main.rs:123-163: every move clears the film) ----
+
+    def move_camera(self, x: float, y: float, z: float):
+        self.camera.move_rel(x, y, z)
+        self.film.clear()
+
+    def rotate_camera(self, x_radians: float = 0.0, y_radians: float = 0.0):
+        if x_radians:
+            self.camera.add_x_angle(x_radians)
+        if y_radians:
+            self.camera.add_y_angle(y_radians)
+        self.film.clear()
+
+    # -- batch-mode API (no reference equivalent) -------------------------
+
+    def _pixels(self):
+        """Tile-swizzled pixel coordinates of the whole (tile-padded)
+        frame; the radiance un-swizzles by a reshape/permute."""
+        if self._frame_pixels is None:
+            W, H, TW, TH = self.width, self.height, self.TILE_W, self.TILE_H
+            Wp, Hp = -(-W // TW) * TW, -(-H // TH) * TH
+            ys, xs = np.meshgrid(np.arange(Hp, dtype=np.int32),
+                                 np.arange(Wp, dtype=np.int32), indexing="ij")
+
+            def swz(a):
+                return (a.reshape(Hp // TH, TH, Wp // TW, TW)
+                        .transpose(0, 2, 1, 3).reshape(-1))
+            px = swz(xs)
+            py = swz(ys)
+            if self.compat_v_bug:
+                py = ((py * W + px) // H).astype(np.int32)  # mod.rs:96
+            self._frame_pixels = (torch.from_numpy(px).to(self.device),
+                                  torch.from_numpy(py).to(self.device))
+        return self._frame_pixels
+
+    def _render_pool(self, pool: int):
+        """`pool` samples of the whole frame in one pooled wavefront;
+        returns their (pool, H*W, 3) radiance in pixel order."""
+        W, H, TW, TH = self.width, self.height, self.TILE_W, self.TILE_H
+        Wp, Hp = -(-W // TW) * TW, -(-H // TH) * TH
+        px, py = self._pixels()
+        cam = self.camera.params(self.device)
+        os_, ds_, streams = [], [], []
+        for _ in range(pool):
+            jitter, stream = self.draws.next_sample(px.shape[0])
+            o, d = generate_rays(cam, px, py, jitter.to(self.device), W, H)
+            os_.append(o)
+            ds_.append(d)
+            streams.append(stream)
+        rad = self._radiance(torch.cat(os_), torch.cat(ds_), streams, pool)
+        img = (rad.reshape(pool, Hp // TH, Wp // TW, TH, TW, 3)
+               .permute(0, 1, 3, 2, 4, 5).reshape(pool, Hp, Wp, 3))
+        return img[:, :H, :W].reshape(pool, H * W, 3)
+
+    def _choose_pool(self, spp: int) -> int:
+        """Largest divisor of spp within the pool budget (auto: 8)."""
+        budget = DEFAULT_POOL if self.spp_pool is None else self.spp_pool
+        budget = max(1, min(budget, spp))
+        for p in range(budget, 0, -1):
+            if spp % p == 0:
+                return p
+        return 1
+
+    def render(self, spp: int = 1) -> np.ndarray:
+        """Render the full frame at `spp` samples per pixel into the film;
+        returns HDR (H, W, 3) float32 mean radiance."""
+        pool = self._choose_pool(spp)
+        f = self.film
+        for _ in range(spp // pool):
+            radp = self._render_pool(pool)
+            f.pixel_sum += radp.sum(dim=0)
+            f.pixel_sum_sq += (radp * radp).sum(dim=0)
+            f.num_samples += float(pool)
+        return self.get_hdr()
+
+    def get_hdr(self) -> np.ndarray:
+        return self.film.get_pixels().cpu().numpy().reshape(
+            self.height, self.width, 3)
+
+    def get_tonemapped_image(self) -> np.ndarray:
+        """Current film as a tonemapped uint8 (H, W, 3) image (unsampled
+        pixels white, like the u32 path)."""
+        ldr = simple_map(self.film.get_pixels())
+        ldr = torch.where(torch.isnan(ldr), torch.ones_like(ldr),
+                          torch.clamp(ldr, 0.0, 1.0))
+        return (ldr * 255.0).to(torch.uint8).cpu().numpy().reshape(
+            self.height, self.width, 3)
+
+    def render_image(self, spp: int = 1) -> np.ndarray:
+        """Tonemapped uint8 (H, W, 3) image."""
+        self.render(spp)
+        return self.get_tonemapped_image()

@@ -1,0 +1,271 @@
+"""The port's fused-level intersector (ops/cuda_bvh.py) against the
+Pallas kernels it replaces, pallas_bvh_spawn and pallas_bvh_shadow_shade
+run in interpret mode, on identical inputs: the reference's BVH2 arrays,
+its slot records, the same rays, draws and lights.  On the CPU the
+port's wrappers run their plain PyTorch versions.
+
+Tolerance: every output of a live ray agrees within float32 rounding
+(rtol 1e-5) except on at most 24 of every 1536 live rays, the repo's
+edge-flip rule (tests/test_fused_spawn.py:56-62); dead rays agree
+exactly."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from jax.experimental.pallas import tpu as pltpu
+
+from raytracer_tpu.core.intersect import BIG_T
+from raytracer_tpu.core.shade import build_slot_records as jax_slot_records
+from raytracer_tpu.models.collada import ColladaLoader as JaxLoader
+from raytracer_tpu.ops.pallas_bvh import (BVHIntersector as JaxBVH,
+                                          pallas_bvh_shadow_shade,
+                                          pallas_bvh_spawn)
+from raytracer_tpu_torch.ops import cuda_bvh
+from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
+
+N_RAYS = 1024          # one interpret-mode grid step of the TPU kernels
+RB = 128
+
+
+def _flip_budget(n):
+    return 24 * n // 1536
+
+
+def _setup(data_dir, scene="4boxes.dae"):
+    sb = JaxLoader.from_file(data_dir / scene, verbose=False).to_buffers()
+    ref = JaxBVH(sb, triangles_per_leaf=128, use_pallas=True)
+    has_tex = bool((sb.mat_tex_id >= 0).any())
+    records = np.array(jax_slot_records(sb.to_device(), ref.perm,
+                                        ref.perm.shape[0]))
+    records = records[:, :7 if has_tex else 6]
+    ref.set_shade_records(jnp.asarray(records))
+    b = ref.bvh
+    port = BVHIntersector.from_bvh_arrays(
+        b.perm, b.v0, b.e1, b.e2, b.leaf_aabb, b.seg_aabb, b.sc_aabb,
+        b.orders, group=8, device="cpu")
+    port.set_shade_records(torch.from_numpy(records))
+    return sb, ref, port
+
+
+def _rays(sb, seed, n=N_RAYS):
+    """Half camera-like rays from outside toward the scene, half
+    bounce-like rays starting inside its bounds in random directions."""
+    rng = np.random.default_rng(seed)
+    v = sb.tri_verts.reshape(-1, 3)
+    lo, hi = v.min(0), v.max(0)
+    c, span = 0.5 * (lo + hi), hi - lo
+    h = n // 2
+    o1 = c + span * (1.5 + rng.random((h, 3)))
+    d1 = (c + 0.6 * span * (rng.random((h, 3)) - 0.5)) - o1
+    o2 = lo + span * rng.random((n - h, 3))
+    d2 = rng.normal(size=(n - h, 3))
+    o = np.concatenate([o1, o2]).astype(np.float32)
+    d = np.concatenate([d1, d2]).astype(np.float32)
+    return o, d
+
+
+def _lights(sb, L):
+    lp = sb.light_pos
+    lc = sb.light_color
+    if L == 2:
+        lp = np.concatenate([lp, lp * np.array([[-1.0, 1.0, 1.0]])])
+        lc = np.concatenate([lc, lc * 0.35])
+    return lp.astype(np.float32), lc.astype(np.float32)
+
+
+def _planes(x):
+    """(n, R) numpy -> tuple of n (R // 128, 128) jax planes."""
+    return tuple(jnp.asarray(r.reshape(-1, RB)) for r in x)
+
+
+def _np(x):
+    return np.asarray(x).reshape(-1)
+
+
+def _run_both(ref, port, o, d, g, lp, b, key_mode):
+    L = lp.shape[0]
+    rays = np.concatenate([o.T, d.T]).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_bvh_spawn(
+            _planes(rays[0:3]), _planes(rays[3:6]), _planes(g),
+            jnp.asarray(lp), ref.v0, ref.e1, ref.e2, ref.seg_aabb,
+            ref.sc_aabb, ref.orders, ref.shade_planes,
+            world_lo=ref._world_lo_t, world_inv_span=ref._world_inv_t,
+            group=8, n_lights=L, children=b,
+            emit_uv=ref.fused_has_textures, key_mode=key_mode)
+    got = port.spawn(torch.from_numpy(rays), torch.from_numpy(g),
+                     torch.from_numpy(lp), children=b, key_mode=key_mode)
+    return rays, want, got
+
+
+def _close(a, b, atol=1e-6):
+    """Per ray (column): every component within float32 rounding."""
+    return np.isclose(a, b, rtol=1e-5, atol=atol).reshape(
+        -1, a.shape[-1]).all(axis=0)
+
+
+def _compare_spawn(rays, want, got, b, L, key_mode):
+    """Counts the live rays that differ in ANY output (t, record, u/v,
+    shadow rays, child rays, keys) and holds the count to the budget:
+    the reference's XLA build contracts some a*b+c into FMAs, so t may
+    move by an ulp and a ray on a triangle edge or a key-bin boundary
+    may flip."""
+    R = rays.shape[1]
+    alive = np.abs(rays[0]) < 1e30
+    # a hit point carries t's rounding times the ray's extent: positions
+    # compare to 4 ulps of the largest live coordinate
+    pos_tol = 4 * np.spacing(np.float32(max(1.0, np.abs(rays[:3, alive]).max())))
+    t_w, t_g = _np(want["t"]), got["t"].numpy()
+    bad = alive & ~_close(t_g[None], t_w[None])
+    assert (t_g[~alive] == BIG_T).all()
+    assert (t_g[alive & ~bad] < BIG_T).any(), "no hits: the case tests nothing"
+
+    rec_w = np.stack([_np(r) for r in want["rec"]])
+    bad |= alive & (got["rec"].numpy() != rec_w).any(axis=0)
+    if "u" in want:
+        for k in ("u", "v"):
+            bad |= alive & ~_close(got[k].numpy()[None], _np(want[k])[None],
+                                   atol=1e-4)
+
+    sh_g = got["shadow"].numpy().reshape(6, L, R)
+    for li in range(L):
+        sh_w = np.stack([_np(p) for p in want["shadow"][li]])
+        bad |= alive & ~_close(sh_g[:, li], sh_w, atol=pos_tol)
+
+    if b:
+        ch_g = got["children"].numpy().reshape(6, R, b)
+        key_g = got["keys"].numpy().reshape(R, b)
+        for j in range(b):
+            ch_w = np.stack([_np(p) for p in want["children"][j][:6]])
+            bad |= alive & ~_close(ch_g[:, :, j], ch_w, atol=pos_tol)
+            bad |= alive & (key_g[:, j] != _np(want["children"][j][6]))
+        live = key_g != 2 ** 30
+        assert (key_g[live] < 2 ** 30).all() and (key_g[live] >= 0).all()
+        hit = alive & (t_g < BIG_T)
+        assert (live == hit[:, None]).all()
+        assert (key_g[~alive] == 2 ** 30).all()
+    assert bad.sum() <= _flip_budget(alive.sum()), \
+        f"{bad.sum()} of {alive.sum()} live rays differ"
+
+
+def _compare_shadow_shade(ref, port, want, rays, lp, lc):
+    """Both shadow-shade versions on the reference spawn's outputs."""
+    L = lp.shape[0]
+    R = rays.shape[1]
+    so = [np.concatenate([_np(want["shadow"][li][k]) for li in range(L)])
+          for k in range(6)]
+    n = [_np(want["rec"][k]) for k in range(3)]
+    c = [_np(want["rec"][3 + k]) for k in range(3)]
+    with pltpu.force_tpu_interpret_mode():
+        rr = pallas_bvh_shadow_shade(
+            _planes(so[0:3]), _planes(so[3:6]), _planes(n), _planes(c),
+            _planes(rays[3:6]), jnp.asarray(lc), ref.v0, ref.e1, ref.e2,
+            ref.seg_aabb, ref.sc_aabb, ref.orders, group=8, n_lights=L)
+    rad_w = np.stack([_np(x) for x in rr])
+    rad_g = port.shadow_shade(torch.from_numpy(np.stack(so)),
+                              torch.from_numpy(np.stack(n)),
+                              torch.from_numpy(np.stack(c)),
+                              torch.from_numpy(rays[3:6].copy()),
+                              torch.from_numpy(lc)).numpy()
+    assert rad_g.shape == (3, L * R)
+    close = np.isclose(rad_g, rad_w, rtol=1e-5, atol=1e-6).all(axis=0)
+    assert (~close).sum() <= _flip_budget(L * R), \
+        f"{(~close).sum()} of {L * R} shadow rays differ"
+    assert rad_w.max() > 0.0
+
+
+@pytest.fixture(scope="module")
+def boxes(data_dir):
+    return _setup(data_dir)
+
+
+# every child count, light count and key mode, in four interpret-mode
+# compilations (each distinct combination recompiles the TPU kernel)
+@pytest.mark.parametrize("b,L,key_mode", [(0, 2, "dir6"), (1, 1, "dir9"),
+                                          (2, 1, "dir6"), (2, 2, "dir9")])
+def test_spawn_and_shadow_shade_match_pallas(boxes, b, L, key_mode):
+    sb, ref, port = boxes
+    o, d = _rays(sb, seed=10 * b + L)
+    g = np.random.default_rng(99).normal(size=(3 * b, N_RAYS)).astype(np.float32)
+    lp, lc = _lights(sb, L)
+    rays, want, got = _run_both(ref, port, o, d, g, lp, b, key_mode)
+    _compare_spawn(rays, want, got, b, L, key_mode)
+    if b != 1:
+        _compare_shadow_shade(ref, port, want, rays, lp, lc)
+
+
+def test_spawn_textured_emits_uv(data_dir):
+    sb, ref, port = _setup(data_dir, "ico3_tex.dae")
+    assert ref.fused_has_textures and port.fused_has_textures
+    o, d = _rays(sb, seed=5)
+    g = np.random.default_rng(6).normal(size=(3, N_RAYS)).astype(np.float32)
+    lp, lc = _lights(sb, 1)
+    rays, want, got = _run_both(ref, port, o, d, g, lp, 1, "dir6")
+    assert got["rec"].shape[0] == 7
+    _compare_spawn(rays, want, got, 1, 1, "dir6")
+
+
+def test_axis_parallel_and_dead_rays(boxes):
+    """Zero direction components (the slab guard's sign-dropping 1e-30
+    clamp), origins exactly on box planes, and dead rays: a wholly dead
+    half plus scattered dead lanes."""
+    sb, ref, port = boxes
+    o, d = _rays(sb, seed=21)
+    v = sb.tri_verts.reshape(-1, 3)
+    lo, hi = v.min(0), v.max(0)
+    rng = np.random.default_rng(22)
+    n_ax = 256
+    axis = rng.integers(0, 3, n_ax)
+    d[:n_ax] = 0.0
+    d[np.arange(n_ax), axis] = rng.choice([-1.0, 1.0], n_ax)
+    o[:n_ax] = lo + (hi - lo) * rng.random((n_ax, 3))
+    o[:n_ax:4, 0] = lo[0]              # origins on the x-min plane
+    o[1:n_ax:4, 1] = hi[1]             # and on the y-max plane
+    o[512:] = 1e35
+    d[512:] = 1.0
+    o[300:340] = 1e35
+    d[300:340] = 1.0
+    g = rng.normal(size=(3, N_RAYS)).astype(np.float32)
+    lp, lc = _lights(sb, 1)
+    rays, want, got = _run_both(ref, port, o, d, g, lp, 1, "dir6")
+    _compare_spawn(rays, want, got, 1, 1, "dir6")
+    t = got["t"].numpy()
+    assert (t[512:] == BIG_T).all() and (t[300:340] == BIG_T).all()
+    assert not np.isnan(t).any()
+    assert (got["keys"].numpy()[512:] == 2 ** 30).all()
+    _compare_shadow_shade(ref, port, want, rays, lp, lc)
+
+
+def test_plain_closest_first_lane_wins_ties():
+    """Two identical triangles in one row: the first lane keeps the tie
+    (pallas_bvh.py:250-253), and a dead ray misses."""
+    tri = np.zeros((9, 128), np.float32)
+    for s in (3, 7):
+        tri[0:3, s] = [0.0, 0.0, 1.0]        # v0
+        tri[3:6, s] = [1.0, 0.0, 0.0]        # e1
+        tri[6:9, s] = [0.0, 1.0, 0.0]        # e2
+    rays = torch.tensor([[0.2, 1e35], [0.2, 1e35], [0.0, 1e35],
+                         [0.0, 1.0], [0.0, 1.0], [1.0, 1.0]])
+    t, slot, u, v = cuda_bvh.closest_plain(rays, torch.from_numpy(tri))
+    assert t[0] == 1.0 and slot[0] == 3
+    assert t[1] == BIG_T and slot[1] == -1 and u[1] == 0.0
+
+
+def test_cpu_call_leaves_launch_counts_alone():
+    """The launch counts are plain ints that only a kernel launch
+    raises; a CPU call runs the plain version and leaves them alone."""
+    before = (cuda_bvh.bvh_spawn.launches,
+              cuda_bvh.bvh_shadow_shade.launches)
+    bvh = cuda_bvh.PackedBVH(
+        tri=torch.zeros((9, 128)), seg_aabb=torch.zeros((32, 8)),
+        sc_aabb=torch.zeros((1, 8)), orders=torch.zeros((6, 1), dtype=torch.int32),
+        C=128, S=4, G=8)
+    rays = torch.ones((6, 4))
+    cuda_bvh.bvh_spawn(rays, torch.zeros((0, 4)), torch.zeros((1, 3)), bvh,
+                       torch.zeros((6, 128)), world_lo=(0, 0, 0),
+                       world_inv_span=(1, 1, 1), children=0, emit_uv=False)
+    assert (cuda_bvh.bvh_spawn.launches,
+            cuda_bvh.bvh_shadow_shade.launches) == before
+    assert isinstance(before[0], int) and isinstance(before[1], int)
