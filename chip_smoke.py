@@ -7,24 +7,32 @@
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from raytracer_tpu_torch/csrc (nvcc, sm_90a);
-3. hold each kernel against its plain PyTorch version on the card, on
-   thai2 (tpl 256) rays from a real pooled level-0 wavefront and its
-   sorted level-1 children, for children b in {0, 1, 2} and lights L in
-   {1, 2}; time both at the main path's level-1 shape and count the
-   ray-triangle tests for the bound; then a whole 64x64 spp-2 render on
+3. hold each kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it: the three levels of one real
+   pooled wavefront of thai2 (tpl 256, 1024x1024, 8 samples): level 0
+   (8,388,608 rays, children b=2), level 1 (16,777,216 rays, b=1) and
+   level 2 (16,777,216 rays, b=0), one light; then slices of levels 0
+   and 1 for b in {0, 1, 2} and lights L in {1, 2}.  Each kernel and
+   plain version is timed at each level, and the kernels count their
+   ray-triangle tests for the bound.  Then a whole 64x64 spp-2 render on
    the card against the plain path on the CPU, both fed the same
    numpy-made draws;
 4. the main path: thai2 at 1024x1024, render(16) (two pooled wavefronts
-   of 8 samples, three levels each), timed, with each kernel's launch
-   count and its CUDA-event time per level;
+   of 8 samples, three levels each) after a render(8) warm-up at the
+   same pool and a cleared film, timed, with each kernel's launch count
+   and its CUDA-event time per level;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
 Tolerance of the kernel checks: the kernels are built with --fmad=false,
-so they round like the plain versions op for op; any ray whose t or any
-other output differs counts as a flip, and at most 24 of every 1536
-rays may flip (the repo's edge-flip rule, tests/test_fused_spawn.py).
-The whole-render check allows the same share of flipped values.
+so they round like the plain versions op for op, and a live ray may
+differ in only two ways.  (a) An exact-t tie: the kernel's walk order
+picks another triangle at the same t.  Such a ray is counted apart, and
+only after a dense test shows that the kernel's record belongs to a
+triangle hit at exactly that t.  (b) Slab-test rounding at a box face
+culls a hit that the dense version keeps.  At most EDGE_RAYS rays of any
+one comparison may differ in any other way (t or any output); the
+whole-render check allows 3 * EDGE_RAYS values.
 
 `--json PATH` also writes everything measured to PATH as JSON.
 """
@@ -37,8 +45,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
-FLIP_SHARE = 24 / 1536
+# f32 instructions/s outside the tensor cores: the data sheet's 67 TFLOP/s
+# counts an FMA as two flops, and the kernels are built with --fmad=false,
+# so each Moller-Trumbore operation is one instruction, at half that rate.
+H100_F32_OPS = 33.5e12
+EDGE_RAYS = 8                   # see the tolerance above
 
 
 def log(*a):
@@ -89,42 +100,94 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def plain_ms(fn):
-    """One timed call (the plain versions take seconds at full size)."""
+def timed(fn):
+    """One call timed on the host clock between two synchronizations
+    (the plain versions take seconds at full size); returns (result,
+    ms)."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def spawn_flips(got, want, rays, b, L):
-    """Rays (of the live ones) whose kernel and plain outputs differ in
-    anything, and the largest absolute difference elsewhere."""
+def tied(rays, t, krec, bvh, planes):
+    """For rays whose kernel record differs from the plain one at the
+    same t: True where the kernel's record is that of a triangle that the
+    dense test also hits at exactly that t (an exact tie)."""
     import torch
-    alive = rays[0].abs() < 1e30
+    from raytracer_tpu_torch.ops import cuda_bvh
+    out = [torch.zeros((0,), dtype=torch.bool, device=t.device)]
+    for s in range(0, t.numel(), 256):
+        tt, _, _ = cuda_bvh.mt_plain(rays[:, s:s + 256], bvh.tri)
+        at_t = tt == t[s:s + 256, None]
+        same = (planes[:, None, :] == krec[:, s:s + 256, None]).all(0)
+        out.append((at_t & same).any(1))
+    return torch.cat(out)
+
+
+def check_spawn(what, got, want, rays, b, L, bvh, planes):
+    """Compare one spawn launch with its plain version ray by ray; fail
+    if more than EDGE_RAYS live rays differ other than by an exact tie.
+    The error is the largest |difference| of any float output over the
+    live rays that are no tie and hit (or miss) in both versions."""
+    import torch
     R = rays.shape[1]
-    bad = alive & (got["t"] != want["t"])
-    bad |= (got["rec"] != want["rec"]).any(dim=0)
-    bad |= (got["shadow"] != want["shadow"]).view(6, L, R).any(0).any(0)
+    alive = rays[0].abs() < 1e30
+    assert bool((got["t"][~alive] == 3e38).all()), f"{what}: dead ray hit"
     if b:
-        bad |= (got["children"] != want["children"]).view(6, R, b).any(0).any(1)
-        bad |= (got["keys"] != want["keys"]).view(R, b).any(1)
         live = got["keys"] != 2 ** 30
-        assert bool((got["keys"][live] < 2 ** 30).all()), "live key >= 2^30"
-    ok = alive & ~bad & (want["t"] < 3e38)
-    err = (got["t"][ok] - want["t"][ok]).abs().max().item() if ok.any() else 0.0
-    assert bool((got["t"][~alive] == 3e38).all()), "dead ray hit"
-    return int(bad.sum()), int(alive.sum()), err
+        assert bool((got["keys"][live] >= 0).all()
+                    and (got["keys"][live] < 2 ** 30).all()), \
+            f"{what}: live key out of [0, 2^30)"
+    t_same = got["t"] == want["t"]
+    rec_diff = (got["rec"] != want["rec"]).any(0)
+    rest = (got["shadow"] != want["shadow"]).view(6, L, R).any(0).any(0)
+    if b:
+        rest |= (got["children"] != want["children"]).view(6, R, b).any(0).any(1)
+        rest |= (got["keys"] != want["keys"]).view(R, b).any(1)
+    ties = torch.zeros_like(alive)
+    cand = (alive & t_same & rec_diff & (want["t"] < 3e38)).nonzero()[:, 0]
+    if cand.numel():
+        ties[cand] = tied(rays[:, cand], want["t"][cand],
+                          got["rec"][:, cand], bvh, planes)
+    bad = alive & ~ties & (~t_same | rec_diff | rest)
+    keep = alive & ~ties & ((got["t"] < 3e38) == (want["t"] < 3e38))
+    diffs = [(got["t"] - want["t"]).abs()[keep],
+             (got["rec"] - want["rec"]).abs()[:, keep],
+             (got["shadow"] - want["shadow"]).abs().view(6, L, R)[:, :, keep]]
+    if b:
+        diffs.append((got["children"] - want["children"]).abs()
+                     .view(6, R, b)[:, keep])
+    err = max(float(x.max()) if x.numel() else 0.0 for x in diffs)
+    n_bad, n_ties, n_alive = int(bad.sum()), int(ties.sum()), int(alive.sum())
+    log(f"spawn {what}: {n_bad} of {n_alive} live rays differ, {n_ties} "
+        f"exact-t ties; max |err| {err}")
+    assert n_bad <= EDGE_RAYS, f"spawn {what} disagrees"
+    return err
+
+
+def check_shade(what, sk, sp, shadow_rays):
+    """Compare one shadow-shade launch with its plain version; fail if
+    more than EDGE_RAYS shadow rays differ beyond rtol 1e-6.  The error
+    is the largest |difference| over every ray."""
+    import torch
+    diff = ~torch.isclose(sk, sp, rtol=1e-6, atol=0).all(0)
+    n_live = int((shadow_rays[0].abs() < 1e30).sum())
+    err = float((sk - sp).abs().max())
+    log(f"shadow_shade {what}: {int(diff.sum())} of {n_live} live shadow "
+        f"rays differ; max |err| {err}")
+    assert int(diff.sum()) <= EDGE_RAYS, f"shadow_shade {what} disagrees"
+    return err
 
 
 def phase_kernels(rt, quick, rec):
-    """Kernel vs plain on real wavefront rays; returns the numbers the
+    """Kernel vs plain at the main path's shapes; returns the numbers the
     kernels line reports."""
     import numpy as np
     import torch
@@ -135,115 +198,117 @@ def phase_kernels(rt, quick, rec):
     isect = rt.intersector
     scene = rt.scene_arrays
     bvh = isect.packed
-    rng = np.random.default_rng(1)
+    planes = isect.shade_planes
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    # a real pooled level-0 wavefront of the main path (8 samples of the
-    # tile-swizzled frame) and its sorted level-1 children
+    # level 0 of a real pooled wavefront of the main path: 8 samples of
+    # the tile-swizzled frame
     pool = 1 if quick else 8
     px, py = rt._pixels()
-    n_full = px.shape[0] * pool
-    jitter = torch.rand((n_full, 2), generator=gen, device=dev)
+    n = px.shape[0] * pool
+    jitter = torch.rand((n, 2), generator=gen, device=dev)
     o, d = generate_rays(rt.camera.params(dev), px.repeat(pool),
                          py.repeat(pool), jitter, rt.width, rt.height)
-    lvl0_full = torch.cat([o.t(), d.t()]).contiguous()
+    rays = torch.cat([o.t(), d.t()]).contiguous()
     del o, d, jitter
-    g2 = torch.randn((6, n_full), generator=gen, device=dev)
-    s0 = isect.spawn(lvl0_full, g2, scene.light_pos, children=2)
-    _, p = torch.sort(s0["keys"], stable=True)
-    lvl1_full = s0["children"].index_select(1, p)
-    n_live1 = int((lvl1_full[0].abs() < 1e30).sum())
-    log(f"level-0 rays {n_full}, hits {int((s0['t'] < 3e38).sum())}; "
-        f"level-1 rays {lvl1_full.shape[1]}, live {n_live1}")
-    del s0, g2, p
-    # the comparison subsets: tens of thousands of rays from each level
-    n0 = 4096 if quick else 32768
-    lvl0 = lvl0_full[:, n_full // 2 - n0 // 2:n_full // 2 + n0 // 2].contiguous()
-    start = max(0, n_live1 // 2 - n0)
-    lvl1 = lvl1_full[:, start:start + 2 * n0].contiguous()
-    del lvl0_full
 
     lp1, lc1 = scene.light_pos, scene.light_color
-    lights = {1: (lp1, lc1),
-              2: (torch.cat([lp1, lp1 * torch.tensor([[-1.0, 1.0, 1.0]], device=dev)]),
-                  torch.cat([lc1, lc1 * 0.35]))}
     kw = dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
               emit_uv=False, key_mode="dir6")
-    res = {"spawn": {"err": 0.0}, "shadow_shade": {"err": 0.0}}
-    for lname, rays in (("L0", lvl0), ("L1", lvl1)):
+    reps = 2 if quick else 5
+    bvh_bytes = nbytes(bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders)
+    res = {k: {"err": 0.0, "levels": []} for k in ("spawn", "shadow_shade")}
+    n_slice = 4096 if quick else 32768
+    slices = []
+    for level, b in enumerate((2, 1, 0)):
+        R = rays.shape[1]
+        n_live = int((rays[0].abs() < 1e30).sum())
+        what = f"level {level} b={b} L=1 ({R} rays)"
+        g = torch.randn((3 * b, R), generator=gen, device=dev)
+        rows = torch.zeros((R,), dtype=torch.int32, device=dev)
+        got = cuda_bvh.bvh_spawn(rays, g, lp1, bvh, planes, children=b,
+                                 rows_out=rows, **kw)
+        want, p_ms = timed(lambda: cuda_bvh.bvh_spawn_plain(
+            rays, g, lp1, bvh, planes, children=b, **kw))
+        res["spawn"]["err"] = max(res["spawn"]["err"], check_spawn(
+            what, got, want, rays, b, 1, bvh, planes))
+        del want
+        sh_args = (got["shadow"], got["rec"][0:3], got["rec"][3:6],
+                   rays[3:6], lc1)
+        rows_sh = torch.zeros((got["shadow"].shape[1],), dtype=torch.int32,
+                              device=dev)
+        sk = cuda_bvh.bvh_shadow_shade(*sh_args, bvh, rows_out=rows_sh)
+        sp, ps_ms = timed(lambda: cuda_bvh.bvh_shadow_shade_plain(*sh_args,
+                                                                  bvh))
+        res["shadow_shade"]["err"] = max(res["shadow_shade"]["err"],
+                                         check_shade(what, sk, sp, sh_args[0]))
+        del sk, sp
+        k_ms = cuda_ms(lambda: cuda_bvh.bvh_spawn(
+            rays, g, lp1, bvh, planes, children=b, **kw), reps)
+        ks_ms = cuda_ms(lambda: cuda_bvh.bvh_shadow_shade(*sh_args, bvh),
+                        reps)
+        sp_bytes = (nbytes(rays, g, lp1, planes) + bvh_bytes
+                    + nbytes(*got.values()))
+        ss_bytes = nbytes(*sh_args) + bvh_bytes + 3 * sh_args[0].shape[1] * 4
+        for name, ms, pms, by, r in (("spawn", k_ms, p_ms, sp_bytes, rows),
+                                     ("shadow_shade", ks_ms, ps_ms, ss_bytes,
+                                      rows_sh)):
+            tests = int(r.sum()) * bvh.C
+            ops = tests * cuda_bvh.MT_OPS
+            t_bytes = by / H100_BYTES_PER_S * 1e3
+            t_ops = ops / H100_F32_OPS * 1e3
+            res[name]["levels"].append(dict(
+                level=level, rays=int(r.numel()), ms=ms, plain_ms=pms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=by, mt_ops=ops, tests=tests))
+            log(f"{name} level {level} ({r.numel()} rays): kernel {ms:.4f} "
+                f"ms, plain {pms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+                f"({by} B, {ops} MT ops, {tests / R:.1f} ray-triangle "
+                f"tests/ray)")
+        # slices for the other children and light counts
+        if level == 0:
+            slices.append(("level 0", rays[:, R // 2 - n_slice // 2:
+                                          R // 2 + n_slice // 2]))
+        elif level == 1:
+            start = max(0, n_live // 2 - n_slice)
+            slices.append(("level 1", rays[:, start:start + 2 * n_slice]))
+        if b:
+            _, p = torch.sort(got["keys"], stable=True)
+            rays = got["children"].index_select(1, p)
+        del got, g, sh_args
+
+    rng = np.random.default_rng(1)
+    lights = {1: (lp1, lc1),
+              2: (torch.cat([lp1, lp1 * torch.tensor([[-1.0, 1.0, 1.0]],
+                                                     device=dev)]),
+                  torch.cat([lc1, lc1 * 0.35]))}
+    for lname, rays in slices:
+        rays = rays.contiguous()
         R = rays.shape[1]
         for b in (0, 1, 2):
             for L in (1, 2):
                 lp, lc = lights[L]
+                what = f"{lname} slice b={b} L={L} ({R} rays)"
                 g = torch.from_numpy(rng.standard_normal(
                     (3 * b, R), dtype=np.float32)).to(dev)
-                got = cuda_bvh.bvh_spawn(rays, g, lp, bvh, isect.shade_planes,
+                got = cuda_bvh.bvh_spawn(rays, g, lp, bvh, planes,
                                          children=b, **kw)
-                want = cuda_bvh.bvh_spawn_plain(rays, g, lp, bvh,
-                                                isect.shade_planes,
+                want = cuda_bvh.bvh_spawn_plain(rays, g, lp, bvh, planes,
                                                 children=b, **kw)
-                torch.cuda.synchronize()
-                flips, n_alive, err = spawn_flips(got, want, rays, b, L)
-                log(f"spawn {lname} b={b} L={L}: {flips} of {n_alive} live "
-                    f"rays differ; max |t err| on the rest {err}")
-                assert flips <= FLIP_SHARE * max(n_alive, 1), "spawn disagrees"
-                res["spawn"]["err"] = max(res["spawn"]["err"], err)
+                res["spawn"]["err"] = max(res["spawn"]["err"], check_spawn(
+                    what, got, want, rays, b, L, bvh, planes))
                 if b == 0:
                     args = (got["shadow"], got["rec"][0:3], got["rec"][3:6],
                             rays[3:6], lc)
-                    sk = cuda_bvh.bvh_shadow_shade(*args, bvh)
-                    sp = cuda_bvh.bvh_shadow_shade_plain(*args, bvh)
-                    torch.cuda.synchronize()
-                    diff = ~torch.isclose(sk, sp, rtol=1e-6, atol=0).all(0)
-                    n_sh = int((got["shadow"][0].abs() < 1e30).sum())
-                    same = ~diff
-                    err = ((sk[:, same] - sp[:, same]).abs().max().item()
-                           if bool(same.any()) else 0.0)
-                    log(f"shadow_shade {lname} L={L}: {int(diff.sum())} of "
-                        f"{n_sh} live shadow rays differ; max |err| {err}")
-                    assert int(diff.sum()) <= FLIP_SHARE * max(n_sh, 1), \
-                        "shadow_shade disagrees"
                     res["shadow_shade"]["err"] = max(
-                        res["shadow_shade"]["err"], err)
-
-    # time and bound at the main path's level-1 shape (b=1, L=1), on the
-    # whole sorted level-1 wavefront
-    lvl1 = lvl1_full.contiguous()
-    del lvl1_full
-    R = lvl1.shape[1]
-    g1 = torch.randn((3, R), generator=gen, device=dev)
-    rows = torch.zeros((R,), dtype=torch.int32, device=dev)
-    out = cuda_bvh.bvh_spawn(lvl1, g1, lp1, bvh, isect.shade_planes,
-                             children=1, rows_out=rows, **kw)
-    rows_sh = torch.zeros((R,), dtype=torch.int32, device=dev)
-    sh_args = (out["shadow"], out["rec"][0:3], out["rec"][3:6], lvl1[3:6], lc1)
-    cuda_bvh.bvh_shadow_shade(*sh_args, bvh, rows_out=rows_sh)
-    reps = 2 if quick else 5
-    k_ms = cuda_ms(lambda: cuda_bvh.bvh_spawn(lvl1, g1, lp1, bvh,
-                                              isect.shade_planes, children=1,
-                                              **kw), reps)
-    ks_ms = cuda_ms(lambda: cuda_bvh.bvh_shadow_shade(*sh_args, bvh), reps)
-    p_ms = plain_ms(lambda: cuda_bvh.bvh_spawn_plain(
-        lvl1, g1, lp1, bvh, isect.shade_planes, children=1, **kw))
-    ps_ms = plain_ms(lambda: cuda_bvh.bvh_shadow_shade_plain(*sh_args, bvh))
-    bvh_bytes = nbytes(bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders)
-    sp_bytes = (nbytes(lvl1, g1, lp1, isect.shade_planes) + bvh_bytes
-                + nbytes(*[v for v in out.values()]))
-    sh_out = 3 * out["shadow"].shape[1] * 4
-    ss_bytes = nbytes(*sh_args) + bvh_bytes + sh_out
-    mt = {k: int(r.sum()) * bvh.C * cuda_bvh.MT_FLOPS
-          for k, r in (("spawn", rows), ("shadow_shade", rows_sh))}
-    for name, ms, pms, by in (("spawn", k_ms, p_ms, sp_bytes),
-                              ("shadow_shade", ks_ms, ps_ms, ss_bytes)):
-        t_bytes = by / H100_BYTES_PER_S * 1e3
-        t_ops = mt[name] / H100_F32_FLOPS * 1e3
-        res[name].update(ms=ms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bytes=by, mt_flops=mt[name], rays=R)
-        log(f"{name} at the level-1 shape ({R} rays): kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms "
-            f"({by} B, {mt[name]} MT flops, "
-            f"{mt[name] / cuda_bvh.MT_FLOPS / R:.1f} ray-triangle tests/ray)")
+                        res["shadow_shade"]["err"], check_shade(
+                            what, cuda_bvh.bvh_shadow_shade(*args, bvh),
+                            cuda_bvh.bvh_shadow_shade_plain(*args, bvh),
+                            args[0]))
+    # the kernels line reports the largest shape: level 1
+    for name in res:
+        res[name].update(res[name]["levels"][1])
     rec["kernel_checks"] = res
     return res
 
@@ -266,7 +331,7 @@ def phase_render_compare(rec):
     flips = int((~np.isclose(a, b, rtol=2e-4, atol=2e-5)).sum())
     log(f"render cuda vs cpu: {flips} of {a.size} values differ; max |err| "
         f"{float(np.abs(a - b).max())}")
-    assert flips <= FLIP_SHARE * a.size, "render disagrees with the plain path"
+    assert flips <= 3 * EDGE_RAYS, "render disagrees with the plain path"
     rec["render_compare"] = dict(flips=flips, values=int(a.size))
 
 
@@ -276,9 +341,10 @@ def phase_main(rt, rec):
     from raytracer_tpu_torch.ops import cuda_bvh
 
     t0 = time.perf_counter()
-    rt.render(1)
+    rt.render(8)        # one wavefront at the timed render's pool
     torch.cuda.synchronize()
-    log(f"warm-up render(1): {time.perf_counter() - t0:.3f} s")
+    log(f"warm-up render(8): {time.perf_counter() - t0:.3f} s")
+    rt.film.clear()     # the timed render's image holds its 16 samples
     torch.cuda.reset_peak_memory_stats()
     cuda_bvh.bvh_spawn.launches = 0
     cuda_bvh.bvh_shadow_shade.launches = 0
@@ -401,6 +467,8 @@ def main(argv):
             "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": None, "shape": f"main-path level 1, {c['rays']} rays",
+            "levels_ms": [lv["ms"] for lv in c["levels"]],
+            "levels_bound_ms": [lv["bound_ms"] for lv in c["levels"]],
             "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
     line = json.dumps({"kernels": kernels})
     log(line)

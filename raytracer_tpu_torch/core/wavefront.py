@@ -27,57 +27,14 @@ from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch.ops.cuda_bvh import ALIVE_LIMIT, sort_key
+
 # Compile-time knobs of the reference render loop (mod.rs:81-82).
 RECURSIONS = 2
 SUB_SPREAD = 1
 
-# |origin| above this marks a dead-lane sentinel ray.
-_ALIVE_SORT_LIMIT = 1.0e30
-
 SORT_KEY_MODES = ("dir6", "dir9", "dirmajor", "posmajor")
 SORT_PAYLOADS = ("ride", "gather")
-
-
-def _expand3(x):
-    """Spread 7 bits to every 3rd position (Morton interleave)."""
-    x = (x | (x << 8)) & 0x0100F00F
-    x = (x | (x << 4)) & 0x010C30C3
-    x = (x | (x << 2)) & 0x09249249
-    return x
-
-
-def _sort_key(isect, origins, dirs, alive, mode="dir6"):
-    """Spatial sort key for bounce rays: direction bins (major) then a
-    Morton code of the spawn origin (minor); dead rays key past
-    everything (2**30).  origins/dirs: (N, 3).  The spawn kernel builds
-    the dir6/dir9 keys itself; the glue uses this for the other modes."""
-    lo = torch.tensor(isect.world_lo, dtype=torch.float32,
-                      device=origins.device)
-    inv_span = torch.tensor(isect.world_inv_span, dtype=torch.float32,
-                            device=origins.device)
-    q = torch.clamp((origins - lo) * inv_span * 128.0, 0.0, 127.0)
-    q = q.to(torch.int32)
-    morton = ((_expand3(q[:, 0]) << 2) | (_expand3(q[:, 1]) << 1)
-              | _expand3(q[:, 2]))
-    octant = ((dirs[:, 0] >= 0).to(torch.int32)
-              + 2 * (dirs[:, 1] >= 0).to(torch.int32)
-              + 4 * (dirs[:, 2] >= 0).to(torch.int32))
-    if mode == "posmajor":
-        key = (morton << 3) | octant
-    elif mode == "dirmajor":
-        key = (octant << 21) | morton
-    elif mode in ("dir6", "dir9"):
-        bits = 2 if mode == "dir6" else 3
-        mag = dirs.abs().amax(dim=1, keepdim=True)
-        qd = torch.clamp((dirs / torch.clamp(mag, min=1e-30) + 1.0)
-                         * (2.0 ** (bits - 1)), 0.0,
-                         float(2 ** bits - 1)).to(torch.int32)
-        dirbin = (qd[:, 0] << (2 * bits)) | (qd[:, 1] << bits) | qd[:, 2]
-        key = ((dirbin << 15) | (morton >> 6) if mode == "dir6"
-               else (dirbin << 21) | morton)
-    else:
-        raise ValueError(f"unknown sort_key_mode {mode!r}")
-    return torch.where(alive, key, torch.full_like(key, 2 ** 30))
 
 
 def _texel_colors(scene, rec, u, v):
@@ -174,9 +131,10 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
             if kernel_keys:
                 skey = sres["keys"]
             else:
-                alive = child[0].abs() < _ALIVE_SORT_LIMIT
-                skey = _sort_key(isect, child[0:3].t(), child[3:6].t(),
-                                 alive, mode=sort_key_mode)
+                alive = child[0].abs() < ALIVE_LIMIT
+                skey = sort_key(child[0:3].t(), child[3:6].t(), alive,
+                                isect.world_lo, isect.world_inv_span,
+                                mode=sort_key_mode)
             if perm_total is None:
                 orig = None
             else:

@@ -27,9 +27,12 @@
 // order, ties keep the first lane of a row and a row wins only on a
 // strict '<' (pallas_bvh.py:248-253).
 //
-// What bounds it on an H100: the Moller-Trumbore arithmetic (~50 f32
-// operations per ray-triangle test, tens of thousands of tests per
-// bounce ray on thai2) against the card's 67 TFLOP/s f32; the ray I/O
+// What bounds it on an H100: the Moller-Trumbore arithmetic (54 f32
+// operations per ray-triangle test, hundreds of tests per bounce ray on
+// thai2) against the card's f32 issue rate.  The 67 TFLOP/s data-sheet
+// peak counts an FMA as two flops; this build contracts nothing (see
+// below), so each operation is one instruction and the ceiling is about
+// 33.5 T operations/s (128 f32 lanes x 132 SMs x 1.98 GHz); the ray I/O
 // (~100-300 bytes a ray) is far below the 3.35 TB/s line.  The triangle
 // planes (9 x NL*C floats, 0.74 MB for thai2 at 256 lanes) stay in L2
 // and are read with __ldg.  This first version spends nothing on the

@@ -29,14 +29,17 @@ _tried = False
 
 
 def _compile() -> bool:
+    """Build into a per-process file and move it into place, so parallel
+    builders never load a half-written library."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o",
-           _LIB_PATH]
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
     except (subprocess.SubprocessError, FileNotFoundError):
         return False
+    os.replace(tmp, _LIB_PATH)
+    return True
 
 
 def _load():

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.intersect import BIG_T, F32_EPSILON
-from raytracer_tpu_torch.core.shade import pow32
+from raytracer_tpu_torch.core.shade import _normalize, pow32
 from raytracer_tpu_torch.models.types import resolve_device
 from raytracer_tpu_torch.ops.bvh import build_bvh2
 
@@ -58,7 +58,8 @@ KEY_MODES = {"none": 0, "dir6": 1, "dir9": 2}
 # f32 operations of one ray-triangle Moller-Trumbore test as the kernel
 # writes it (cross products 9, det 5, |det| test 2, inverse 1, tvec 3,
 # u 6, q 9, v 6, t 6, acceptance 7): the unit of the operation bound.
-MT_FLOPS = 54
+# Built with --fmad=false, each is one instruction (no FMA pairs).
+MT_OPS = 54
 
 # Plain versions: rays per chunk so the (rays x slots) temporaries stay
 # near 1 GB (about 20 live float32 temporaries per ray-slot pair).
@@ -183,95 +184,114 @@ def _raise_on(code, name):
 
 
 def _norm3(x, y, z):
-    """shade._normalize, component form: v / where(|v| > 0, |v|, 1)."""
-    n = torch.sqrt(x * x + y * y + z * z)
-    safe = torch.where(n > 0, n, torch.ones_like(n))
-    return x / safe, y / safe, z / safe
+    """shade._normalize over three component planes."""
+    return _normalize(torch.stack((x, y, z), dim=-1)).unbind(-1)
 
 
 def _expand3(x):
-    """Morton bit-spread of 7 bits (wavefront._expand3)."""
+    """Spread 7 bits to every 3rd position (Morton interleave)."""
     x = (x | (x << 8)) & 0x0100F00F
     x = (x | (x << 4)) & 0x010C30C3
     x = (x | (x << 2)) & 0x09249249
     return x
 
 
+def sort_key(origins, dirs, alive, world_lo, world_inv_span, mode="dir6"):
+    """Spatial sort key of bounce rays: direction bins (major) then a
+    Morton code of the spawn origin (minor); dead rays key past
+    everything (2**30).  The spawn kernel builds the dir6/dir9 keys in
+    its epilogue (pallas_bvh.py:868-896); this is their plain version and
+    the glue's key for the other modes.  origins/dirs (N, 3); world_lo /
+    world_inv_span: 3 float32 values each; "none" keys every live ray 0."""
+    dev = origins.device
+    if mode == "none":
+        key = torch.zeros(alive.shape, dtype=torch.int32, device=dev)
+        return torch.where(alive, key, torch.full_like(key, DEAD_KEY))
+    lo = torch.tensor(world_lo, dtype=torch.float32, device=dev)
+    inv_span = torch.tensor(world_inv_span, dtype=torch.float32, device=dev)
+    q = torch.clamp((origins - lo) * inv_span * 128.0, 0.0, 127.0)
+    q = q.to(torch.int32)
+    morton = ((_expand3(q[:, 0]) << 2) | (_expand3(q[:, 1]) << 1)
+              | _expand3(q[:, 2]))
+    octant = ((dirs[:, 0] >= 0).to(torch.int32)
+              + 2 * (dirs[:, 1] >= 0).to(torch.int32)
+              + 4 * (dirs[:, 2] >= 0).to(torch.int32))
+    if mode == "posmajor":
+        key = (morton << 3) | octant
+    elif mode == "dirmajor":
+        key = (octant << 21) | morton
+    elif mode in ("dir6", "dir9"):
+        bits = 2 if mode == "dir6" else 3
+        mag = dirs.abs().amax(dim=1, keepdim=True)
+        qd = torch.clamp((dirs / torch.clamp(mag, min=1e-30) + 1.0)
+                         * (2.0 ** (bits - 1)), 0.0,
+                         float(2 ** bits - 1)).to(torch.int32)
+        dirbin = (qd[:, 0] << (2 * bits)) | (qd[:, 1] << bits) | qd[:, 2]
+        key = ((dirbin << 15) | (morton >> 6) if mode == "dir6"
+               else (dirbin << 21) | morton)
+    else:
+        raise ValueError(f"unknown sort key mode {mode!r}")
+    return torch.where(alive, key, torch.full_like(key, DEAD_KEY))
+
+
+def mt_plain(rays, tri):
+    """Moller-Trumbore of every ray against every packed slot with the
+    kernels' arithmetic and acceptance expression.  rays (6, n), tri
+    (9, NS).  Returns t, u, v, each (n, NS); t is BIG_T where a pair is
+    rejected."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        tri[k][None, :] for k in range(9))
+    ox, oy, oz, dx, dy, dz = (rays[k][:, None] for k in range(6))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    non_par = det.abs() >= F32_EPSILON
+    inv_det = 1.0 / torch.where(non_par, det, torch.ones_like(det))
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    uu = (tvx * px + tvy * py + tvz * pz) * inv_det
+    del px, py, pz, det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    del tvx, tvy, tvz
+    vv = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    del qx, qy, qz, inv_det
+    ok = non_par & (torch.minimum(torch.minimum(uu, vv),
+                                  torch.minimum(1.0 - (uu + vv), tt))
+                    >= 0.0)
+    return torch.where(ok, tt, torch.full_like(tt, BIG_T)), uu, vv
+
+
 def closest_plain(rays, tri):
-    """Dense closest hit: Moller-Trumbore of every ray against every
-    packed slot, in slot order, with the kernels' acceptance expression;
-    the first minimal slot wins a tie (= strict '<' across rows, first
-    lane within a row).  Dead rays (|ox| >= 1e30) miss.
+    """Dense closest hit: `mt_plain` of every live ray against every
+    packed slot, in slot order; the first minimal slot wins a tie (=
+    strict '<' across rows, first lane within a row).  Dead rays (|ox|
+    >= 1e30) miss without being tested.
 
     Returns t (R,) [BIG_T on a miss], slot (R,) int64 [-1 on a miss],
     u, v (R,) [0 on a miss]."""
     R = rays.shape[1]
-    ns = tri.shape[1]
     dev = rays.device
     t_out = torch.full((R,), BIG_T, dtype=torch.float32, device=dev)
     slot = torch.full((R,), -1, dtype=torch.int64, device=dev)
     u_out = torch.zeros((R,), dtype=torch.float32, device=dev)
     v_out = torch.zeros((R,), dtype=torch.float32, device=dev)
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        tri[k][None, :] for k in range(9))
-    chunk = max(1, _PLAIN_PAIR_BUDGET // max(ns, 1))
-    for s in range(0, R, chunk):
-        e = min(R, s + chunk)
-        ox, oy, oz, dx, dy, dz = (rays[k, s:e][:, None] for k in range(6))
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        non_par = det.abs() >= F32_EPSILON
-        inv_det = 1.0 / torch.where(non_par, det, torch.ones_like(det))
-        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-        uu = (tvx * px + tvy * py + tvz * pz) * inv_det
-        del px, py, pz, det
-        qx = tvy * e1z - tvz * e1y
-        qy = tvz * e1x - tvx * e1z
-        qz = tvx * e1y - tvy * e1x
-        del tvx, tvy, tvz
-        vv = (dx * qx + dy * qy + dz * qz) * inv_det
-        tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        del qx, qy, qz, inv_det
-        ok = non_par & (torch.minimum(torch.minimum(uu, vv),
-                                      torch.minimum(1.0 - (uu + vv), tt))
-                        >= 0.0)
-        tt = torch.where(ok, tt, torch.full_like(tt, BIG_T))
+    live = (rays[0].abs() < ALIVE_LIMIT).nonzero()[:, 0]
+    chunk = max(1, _PLAIN_PAIR_BUDGET // max(tri.shape[1], 1))
+    for s in range(0, live.numel(), chunk):
+        ids = live[s:s + chunk]
+        tt, uu, vv = mt_plain(rays[:, ids], tri)
         j = tt.argmin(dim=1, keepdim=True)
         tmin = tt.gather(1, j)[:, 0]
-        alive = ox[:, 0].abs() < ALIVE_LIMIT
-        hit = alive & (tmin < BIG_T)
-        t_out[s:e] = torch.where(alive, tmin, torch.full_like(tmin, BIG_T))
-        slot[s:e] = torch.where(hit, j[:, 0], torch.full_like(j[:, 0], -1))
+        hit = tmin < BIG_T
         zero = torch.zeros_like(tmin)
-        u_out[s:e] = torch.where(hit, uu.gather(1, j)[:, 0], zero)
-        v_out[s:e] = torch.where(hit, vv.gather(1, j)[:, 0], zero)
+        t_out[ids] = tmin
+        slot[ids] = torch.where(hit, j[:, 0], torch.full_like(j[:, 0], -1))
+        u_out[ids] = torch.where(hit, uu.gather(1, j)[:, 0], zero)
+        v_out[ids] = torch.where(hit, vv.gather(1, j)[:, 0], zero)
     return t_out, slot, u_out, v_out
-
-
-def sort_key_plain(cox, coy, coz, cdx, cdy, cdz, hit, key_mode, world_lo,
-                   world_inv_span):
-    """Child sort keys, elementwise (pallas_bvh.py:868-896)."""
-    if key_mode == "none":
-        return torch.where(hit, 0, DEAD_KEY).to(torch.int32)
-    q = [torch.clamp((c - lo) * inv * 128.0, 0.0, 127.0).to(torch.int32)
-         for c, lo, inv in ((cox, world_lo[0], world_inv_span[0]),
-                            (coy, world_lo[1], world_inv_span[1]),
-                            (coz, world_lo[2], world_inv_span[2]))]
-    morton = (_expand3(q[0]) << 2) | (_expand3(q[1]) << 1) | _expand3(q[2])
-    mag = torch.maximum(torch.maximum(cdx.abs(), cdy.abs()), cdz.abs())
-    mag = torch.clamp(mag, min=1e-30)
-    bits = 2 if key_mode == "dir6" else 3
-    hi = float(2 ** bits - 1)
-    qd = [torch.clamp((c / mag + 1.0) * (2.0 ** (bits - 1)), 0.0, hi
-                      ).to(torch.int32) for c in (cdx, cdy, cdz)]
-    dirbin = (qd[0] << (2 * bits)) | (qd[1] << bits) | qd[2]
-    if key_mode == "dir6":
-        key = (dirbin << 15) | (morton >> 6)
-    else:
-        key = (dirbin << 21) | morton
-    return torch.where(hit, key, torch.full_like(key, DEAD_KEY))
 
 
 def bvh_spawn_plain(rays, gauss, light_pos, bvh: PackedBVH, rec, *,
@@ -329,8 +349,9 @@ def bvh_spawn_plain(rays, gauss, light_pos, bvh: PackedBVH, rec, *,
         for k, (c, fill) in enumerate(((cox, dead), (coy, dead), (coz, dead),
                                        (cdx, one), (cdy, one), (cdz, one))):
             ch[k, :, j] = torch.where(hit, c, fill)
-        keys[:, j] = sort_key_plain(cox, coy, coz, cdx, cdy, cdz, hit,
-                                    key_mode, world_lo, world_inv_span)
+        keys[:, j] = sort_key(torch.stack((cox, coy, coz), dim=1),
+                              torch.stack((cdx, cdy, cdz), dim=1), hit,
+                              world_lo, world_inv_span, key_mode)
     out["children"] = ch.reshape(6, R * b)
     out["keys"] = keys.reshape(R * b)
     return out

@@ -18,8 +18,9 @@ from raytracer_tpu.core.wavefront import _sort_key as jax_sort_key
 from raytracer_tpu.core.wavefront import trace_radiance_fused as jax_fused
 from raytracer_tpu.models.camera import generate_rays as jax_generate_rays
 from raytracer_tpu.ops.pallas_bvh import BVHIntersector as JaxBVH
-from raytracer_tpu_torch.core.wavefront import _sort_key, trace_radiance_fused
+from raytracer_tpu_torch.core.wavefront import trace_radiance_fused
 from raytracer_tpu_torch.models.types import SceneArrays
+from raytracer_tpu_torch.ops import cuda_bvh
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 
 
@@ -186,7 +187,9 @@ def test_sort_key_matches_reference(boxes, mode):
     ref = boxes["ref"]
     want = np.asarray(jax_sort_key(ref, jnp.asarray(o), jnp.asarray(d),
                                    jnp.asarray(alive), mode=mode))
-    got = _sort_key(boxes["port"], torch.from_numpy(o), torch.from_numpy(d),
-                    torch.from_numpy(alive), mode=mode).numpy()
+    port = boxes["port"]
+    got = cuda_bvh.sort_key(torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(alive), port.world_lo,
+                            port.world_inv_span, mode=mode).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got[alive] < 2 ** 30).all() and (got[~alive] == 2 ** 30).all()
