@@ -1,26 +1,43 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py            # the whole check (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only, small
-    python3 chip_smoke.py --profile  # the whole check + a kernel profile
+    python3 chip_smoke.py --profile  # + kernel profiles of two renders
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the CUDA kernels from raytracer_tpu_torch/csrc (nvcc, sm_90a);
+2. build the CUDA kernels from raytracer_tpu_torch/csrc (one nvcc per
+   source, all started together, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it: the three levels of one real
-   pooled wavefront of thai2 (tpl 256, 1024x1024, 8 samples): level 0
-   (8,388,608 rays, children b=2), level 1 (16,777,216 rays, b=1) and
-   level 2 (16,777,216 rays, b=0), one light; then slices of levels 0
-   and 1 for b in {0, 1, 2} and lights L in {1, 2}.  Each kernel and
-   plain version is timed at each level, and the kernels count their
-   ray-triangle tests for the bound.  Then a whole 64x64 spp-2 render on
-   the card against the plain path on the CPU, both fed the same
-   numpy-made draws;
-4. the main path: thai2 at 1024x1024, render(16) (two pooled wavefronts
-   of 8 samples, three levels each) after a render(8) warm-up at the
-   same pool and a cleared film, timed, with each kernel's launch count
-   and its CUDA-event time per level;
+   the shapes the main paths give it.  The fused kernels (bvh_spawn,
+   bvh_shadow_shade): the three levels of one real pooled wavefront of
+   thai2 (tpl 256, 1024x1024, 8 samples): level 0 (8,388,608 rays,
+   children b=2), level 1 (16,777,216 rays, b=1) and level 2
+   (16,777,216 rays, b=0), one light; then slices of levels 0 and 1 for
+   b in {0, 1, 2} and lights L in {1, 2}.  The closest-hit kernels
+   (bvh_closest, cluster_closest, tpl 70): the closest and shadow
+   batches of levels 0 (1,048,576 rays) and 1 (2,097,152 rays, dead rays
+   sorted last) of one 1-spp trace_radiance wavefront of thai2 at
+   1024x1024; bvh_closest also on level-0 slices with 6 and 7 record
+   planes and with a t limit, both on a slice of axis-parallel rays.
+   Each kernel and plain version is timed at each shape, and the kernels
+   count their ray-triangle tests for the bound.  Then whole 64x64
+   renders on the card against the plain path on the CPU, both fed the
+   same numpy-made draws: the fused path (spp 2) and accel="cluster"
+   (spp 1);
+4. the main paths, each with every launch count set to 0 just before
+   it and read just after:
+   a. the fused BVH render: thai2 at 1024x1024, render(16) (two pooled
+      wavefronts of 8 samples, three levels each) after a render(8)
+      warm-up at the same pool and a cleared film;
+   b. accel="cluster": thai2 at 1024x1024 (tpl 70: 157 clusters of 128),
+      render(16) after a render(1) warm-up and a cleared film, one
+      sample per wavefront (96 cluster_closest launches); render(4)
+      instead when the warm-up shows render(16) would pass 60 s;
+   c. the composable wavefront over the BVH with no records (what
+      __graft_entry__.entry() runs), thai2 1024x1024, 1 sample,
+      recursions 2: 6 bvh_closest launches;
+   each timed, with each kernel's launch count and CUDA-event times;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
@@ -28,11 +45,11 @@ Tolerance of the kernel checks: the kernels are built with --fmad=false,
 so they round like the plain versions op for op, and a live ray may
 differ in only two ways.  (a) An exact-t tie: the kernel's walk order
 picks another triangle at the same t.  Such a ray is counted apart, and
-only after a dense test shows that the kernel's record belongs to a
-triangle hit at exactly that t.  (b) Slab-test rounding at a box face
-culls a hit that the dense version keeps.  At most EDGE_RAYS rays of any
-one comparison may differ in any other way (t or any output); the
-whole-render check allows 3 * EDGE_RAYS values.
+only after a dense test shows that the kernel's triangle is hit at
+exactly that t.  (b) Slab-test rounding at a box face culls a hit that
+the dense version keeps.  At most EDGE_RAYS rays of any one comparison
+may differ in any other way (t or any output); the whole-render checks
+allow 3 * EDGE_RAYS values.
 
 `--json PATH` also writes everything measured to PATH as JSON.
 """
@@ -114,6 +131,39 @@ def timed(fn):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+BIG_T = 3.0e38
+
+
+def kernel_wrappers():
+    """Every ported kernel's wrapper by name; each keeps `launches` (a
+    count that only a kernel launch raises) and `events`."""
+    from raytracer_tpu_torch.ops import cuda_bvh, cuda_cluster
+    return {"bvh_spawn": cuda_bvh.bvh_spawn,
+            "bvh_shadow_shade": cuda_bvh.bvh_shadow_shade,
+            "bvh_closest": cuda_bvh.bvh_closest,
+            "cluster_closest": cuda_cluster.cluster_closest}
+
+
+def set_counts(timing):
+    """Every kernel's launch count to 0; with `timing`, each launch also
+    records CUDA events (else none)."""
+    for w in kernel_wrappers().values():
+        w.launches = 0
+        w.events = [] if timing else None
+
+
+def read_counts():
+    """The launch counts, and the (ms, rays) of each timed launch."""
+    import torch
+    torch.cuda.synchronize()
+    counts, times = {}, {}
+    for name, w in kernel_wrappers().items():
+        counts[name] = w.launches
+        times[name] = [(a.elapsed_time(b), n) for a, b, n in (w.events or [])]
+        w.events = None
+    return counts, times
 
 
 def tied(rays, t, krec, bvh, planes):
@@ -338,7 +388,6 @@ def phase_render_compare(rec):
 def phase_main(rt, rec):
     import numpy as np
     import torch
-    from raytracer_tpu_torch.ops import cuda_bvh
 
     t0 = time.perf_counter()
     rt.render(8)        # one wavefront at the timed render's pool
@@ -346,24 +395,20 @@ def phase_main(rt, rec):
     log(f"warm-up render(8): {time.perf_counter() - t0:.3f} s")
     rt.film.clear()     # the timed render's image holds its 16 samples
     torch.cuda.reset_peak_memory_stats()
-    cuda_bvh.bvh_spawn.launches = 0
-    cuda_bvh.bvh_shadow_shade.launches = 0
-    cuda_bvh.bvh_spawn.events = []
-    cuda_bvh.bvh_shadow_shade.events = []
+    set_counts(timing=True)
     t0 = time.perf_counter()
     hdr = rt.render(16)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"spawn": cuda_bvh.bvh_spawn.launches,
-                "shadow_shade": cuda_bvh.bvh_shadow_shade.launches}
-    per_launch = {}
-    for name, w in (("spawn", cuda_bvh.bvh_spawn),
-                    ("shadow_shade", cuda_bvh.bvh_shadow_shade)):
-        per_launch[name] = [(a.elapsed_time(b), n) for a, b, n in w.events]
-        w.events = None
+    counts, times = read_counts()
+    launches = {"spawn": counts["bvh_spawn"],
+                "shadow_shade": counts["bvh_shadow_shade"]}
+    per_launch = {"spawn": times["bvh_spawn"],
+                  "shadow_shade": times["bvh_shadow_shade"]}
     peak = torch.cuda.max_memory_allocated()
-    log(f"launches in render(16): {launches}")
-    assert launches == {"spawn": 6, "shadow_shade": 6}, launches
+    log(f"launches in render(16): {counts}")
+    assert counts == {"bvh_spawn": 6, "bvh_shadow_shade": 6,
+                      "bvh_closest": 0, "cluster_closest": 0}, counts
     assert hdr.shape == (1024, 1024, 3) and np.isfinite(hdr).all()
     nonblack = float((hdr.sum(-1) > 0).mean())
     mrays = 1024 * 1024 * 16 / secs / 1e6
@@ -379,16 +424,349 @@ def phase_main(rt, rec):
     return launches, per_launch
 
 
-def phase_profile(rt, rec):
-    """torch.profiler over one pooled render(8): device time by kernel
-    and the device's busy share of the wall time."""
+class Recorder:
+    """An intersector that records the plane-form rays of every closest
+    and shadow query, then hands the query on."""
+
+    def __init__(self, isect):
+        self.isect = isect
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.isect, name)
+
+    def query(self, scene, origins, dirs, alive=None, **kw):
+        from raytracer_tpu_torch.ops.cuda_bvh import rays_from
+        self.calls.append(("closest", rays_from(origins, dirs, alive)))
+        return self.isect.query(scene, origins, dirs, alive=alive, **kw)
+
+    def shadow(self, scene, origins, dirs, alive=None, **kw):
+        from raytracer_tpu_torch.ops.cuda_bvh import rays_from
+        self.calls.append(("shadow", rays_from(origins, dirs, alive)))
+        return self.isect.shadow(scene, origins, dirs, alive=alive, **kw)
+
+
+def frame_rays(rt, seed):
+    """Primary rays of one jittered sample of rt's whole frame, in the
+    engine's tile-swizzled order."""
+    import torch
+    from raytracer_tpu_torch.models.camera import generate_rays
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    px, py = rt._pixels()
+    jitter = torch.rand((px.shape[0], 2), generator=gen, device=dev)
+    return generate_rays(rt.camera.params(dev), px, py, jitter, rt.width,
+                         rt.height)
+
+
+def mt_tie(rays, t, slot, tri):
+    """True where the dense Moller-Trumbore of each ray against the
+    triangle at its kernel slot gives exactly t (an exact-t tie)."""
+    from raytracer_tpu_torch.core.intersect import moller_trumbore
+    cols = tri[:, slot.long().clamp(min=0)]
+    return moller_trumbore(*rays.unbind(0), *cols.unbind(0))[0] == t
+
+
+def check_closest(what, got, want, rays, tri, limit, shadow):
+    """Compare one closest-hit launch with its plain version ray by ray.
+    Below `limit` every output must match; beyond it t is unspecified
+    (the walk may cull), but no kernel t may undercut the dense one.
+    Shadow batches compare the (0.01, 1.0) window and t below the
+    limit.  Fails if more than EDGE_RAYS live rays differ other than by
+    an exact tie; returns the largest |difference| of a float output
+    over the live rays that are no tie and hit (or miss) in both."""
+    import torch
+    alive = rays[0].abs() < 1e30
+    assert bool((got["t"][~alive] == BIG_T).all()), f"{what}: dead ray hit"
+    below = want["t"] < limit
+    bad = alive & (got["t"] < want["t"])
+    ties = torch.zeros_like(alive)
+    if shadow:
+        def window(t):
+            return (t < BIG_T) & (t > 0.01) & (t < 1.0)
+        bad |= alive & ((window(got["t"]) != window(want["t"]))
+                        | (below & (got["t"] != want["t"])))
+        keep = alive & below & (got["t"] < BIG_T)
+        fields = ("t",)
+    else:
+        fields = ("t", "u", "v") + (("rec",) if "rec" in want else ())
+        diff = got["slot"] != want["slot"]
+        for k in fields:
+            d = got[k] != want[k]
+            diff |= d.any(0) if d.dim() == 2 else d
+        cand = (alive & below & (got["t"] == want["t"]) & (want["t"] < BIG_T)
+                & (got["slot"] != want["slot"])).nonzero()[:, 0]
+        if cand.numel():
+            ties[cand] = mt_tie(rays[:, cand], want["t"][cand],
+                                got["slot"][cand], tri)
+        bad |= alive & below & ~ties & diff
+        keep = alive & below & ~ties & ((got["t"] < BIG_T)
+                                        == (want["t"] < BIG_T))
+    err = 0.0
+    for k in fields:
+        dk = (got[k] - want[k]).abs()
+        dk = dk[:, keep] if dk.dim() == 2 else dk[keep]
+        if dk.numel():
+            err = max(err, float(dk.max()))
+    n_bad, n_ties, n_alive = int(bad.sum()), int(ties.sum()), int(alive.sum())
+    log(f"{what}: {n_bad} of {n_alive} live rays differ, {n_ties} exact-t "
+        f"ties; max |err| {err}")
+    assert n_bad <= EDGE_RAYS, f"{what} disagrees"
+    return err
+
+
+def axis_parallel_rays(grid, n, seed):
+    """(6, n) rays with one nonzero direction component (+-1), origins
+    inside the scene bounds, a quarter of them exactly on a plane of a
+    cluster box parallel to the ray (a zero component meets an origin on
+    the plane: the cluster kernel's raw 1/d gives NaN there)."""
+    import torch
+    dev = grid.aabb.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lo = grid.aabb[:, 0:3].min(0).values
+    hi = grid.aabb[:, 3:6].max(0).values
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
+    axis = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2.0 - 1.0
+    d = torch.zeros((n, 3), device=dev)
+    d[torch.arange(n, device=dev), axis] = sign
+    snap = torch.arange(0, n, 4, device=dev)
+    k = torch.randint(0, grid.num_clusters, (snap.numel(),), generator=gen,
+                      device=dev)
+    c = (axis[snap] + torch.randint(1, 3, (snap.numel(),), generator=gen,
+                                    device=dev)) % 3
+    side = torch.randint(0, 2, (snap.numel(),), generator=gen, device=dev)
+    o[snap, c] = grid.aabb[k, 3 * side + c]
+    return torch.cat([o.t(), d.t()]).contiguous()
+
+
+def phase_closest_kernels(rt, quick, rec):
+    """bvh_closest and cluster_closest against their plain versions at
+    the level shapes of one 1-spp trace_radiance wavefront (tpl 70)."""
+    import torch
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.shade import build_slot_records
+    from raytracer_tpu_torch.core.wavefront import trace_radiance
+    from raytracer_tpu_torch.ops import cuda_bvh, cuda_cluster
+
+    scene = rt.scene_arrays
+    isect_b = rtx.make_intersector("bvh", rt.scene_buffers)
+    isect_c = rtx.make_intersector("cluster", rt.scene_buffers)
+    bvh, grid = isect_b.packed, isect_c.packed
+    log(f"closest-hit structures: BVH {bvh.num_slots} slots (C={bvh.C}), "
+        f"cluster grid K={grid.num_clusters} C={grid.C}")
+    # the level rays of one trace_radiance wavefront (entry()'s path)
+    o, d = frame_rays(rt, seed=2)
+    recorder = Recorder(isect_b)
+    trace_radiance(scene, o, d, [rtx.TorchDraws(3, "cuda")], recorder, 2, 1)
+    batches = [(f"level {i // 2} {kind}", rays) for i, (kind, rays)
+               in enumerate(recorder.calls[:4])]
+    del recorder, o, d
+    reps = 2 if quick else 5
+    kernels = {
+        "bvh_closest": (
+            lambda r, lim, sh, rows=None: cuda_bvh.bvh_closest(
+                r, bvh, t_limit=lim, shadow=sh, rows_out=rows),
+            lambda r, sh: cuda_bvh.bvh_closest_plain(r, bvh, shadow=sh),
+            bvh.tri, bvh.C,
+            bvh.num_slots * 36 + (bvh.seg_aabb.numel() + bvh.sc_aabb.numel()
+                                  + bvh.orders.numel()) * 4),
+        "cluster_closest": (
+            lambda r, lim, sh, rows=None: cuda_cluster.cluster_closest(
+                r, grid, t_limit=lim, rows_out=rows),
+            lambda r, sh: cuda_cluster.cluster_closest_plain(r, grid),
+            grid.tri, grid.C,
+            grid.num_slots * 36 + (grid.aabb.numel()
+                                   + grid.orders.numel()) * 4)}
+    res = {k: {"err": 0.0, "levels": []} for k in kernels}
+    for name, (kern, plain, tri, C, struct_bytes) in kernels.items():
+        for what, rays in batches:
+            shadow = what.endswith("shadow")
+            lim = 1.0 if shadow else BIG_T
+            R = rays.shape[1]
+            rows = torch.zeros((R,), dtype=torch.int32, device=rays.device)
+            got = kern(rays, lim, shadow, rows)
+            want, p_ms = timed(lambda: plain(rays, shadow))
+            res[name]["err"] = max(res[name]["err"], check_closest(
+                f"{name} {what} ({R} rays)", got, want, rays, tri, lim,
+                shadow))
+            k_ms = cuda_ms(lambda: kern(rays, lim, shadow), reps)
+            by = nbytes(rays) + struct_bytes + (4 if shadow else 16) * R
+            tests = int(rows.sum()) * C
+            ops = tests * cuda_bvh.MT_OPS
+            t_bytes = by / H100_BYTES_PER_S * 1e3
+            t_ops = ops / H100_F32_OPS * 1e3
+            res[name]["levels"].append(dict(
+                batch=what, rays=R, ms=k_ms, plain_ms=p_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=by, mt_ops=ops, tests=tests))
+            log(f"{name} {what} ({R} rays): kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms ({by} B, "
+                f"{ops} MT ops, {tests / R:.1f} ray-triangle tests/ray)")
+            del got, want
+        # the kernels line reports the largest shape: level 1 closest
+        res[name].update(res[name]["levels"][2])
+
+    # slices: records, a t limit, axis-parallel rays
+    n_slice = 4096 if quick else 65536
+    lvl0 = batches[0][1]
+    mid = lvl0.shape[1] // 2
+    sl = lvl0[:, mid - n_slice // 2:mid + n_slice // 2].contiguous()
+    records = build_slot_records(scene, isect_b.perm, bvh.num_slots)
+    for n_rec in (6, 7):
+        planes = records[:, :n_rec].t().contiguous()
+        got = cuda_bvh.bvh_closest(sl, bvh, planes)
+        want = cuda_bvh.bvh_closest_plain(sl, bvh, planes)
+        res["bvh_closest"]["err"] = max(res["bvh_closest"]["err"],
+                                        check_closest(
+            f"bvh_closest level 0 slice, {n_rec} record planes "
+            f"({n_slice} rays)", got, want, sl, bvh.tri, BIG_T, False))
+    want = cuda_bvh.bvh_closest_plain(sl, bvh)
+    hit_t = want["t"][want["t"] < BIG_T]
+    lim = float(hit_t.median()) if hit_t.numel() else 1.0
+    got = cuda_bvh.bvh_closest(sl, bvh, t_limit=lim)
+    res["bvh_closest"]["err"] = max(res["bvh_closest"]["err"], check_closest(
+        f"bvh_closest level 0 slice, t_limit {lim:.4f} ({n_slice} rays)",
+        got, want, sl, bvh.tri, lim, False))
+    ax = axis_parallel_rays(grid, n_slice, seed=4)
+    for name, (kern, plain, tri, _, _) in kernels.items():
+        for shadow in (False, True):
+            lim = 1.0 if shadow else BIG_T
+            res[name]["err"] = max(res[name]["err"], check_closest(
+                f"{name} axis-parallel slice{' shadow' if shadow else ''} "
+                f"({n_slice} rays)", kern(ax, lim, shadow), plain(ax, shadow),
+                ax, tri, lim, shadow))
+    rec["closest_checks"] = res
+    return res
+
+
+def phase_render_compare_cluster(rec):
+    """accel="cluster" at 64x64, spp 1, on the card and on the CPU."""
+    import numpy as np
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    scene = ColladaLoader.from_file(os.path.join(REPO, "data", "thai2.dae"),
+                                    width=64, height=64, verbose=False)
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        rt = rtx.RayTracer(scene, 64, 64, accel="cluster", device=dev,
+                           draws=NumpyDraws(6, dev))
+        t0 = time.perf_counter()
+        imgs[dev] = rt.render(1)
+        log(f"cluster render 64x64 spp 1 on {dev}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    a, b = imgs["cuda"], imgs["cpu"]
+    assert np.isfinite(a).all() and a.max() > 0
+    flips = int((~np.isclose(a, b, rtol=2e-4, atol=2e-5)).sum())
+    log(f"cluster render cuda vs cpu: {flips} of {a.size} values differ; "
+        f"max |err| {float(np.abs(a - b).max())}")
+    assert flips <= 3 * EDGE_RAYS, "cluster render disagrees with the CPU"
+    rec["render_compare_cluster"] = dict(flips=flips, values=int(a.size))
+
+
+def by_level(times, per_sample):
+    """Per-launch (ms, rays) of a composable wavefront, grouped by
+    level: each sample launches closest, shadow for levels 0, 1, 2."""
+    out = {}
+    for i, (ms, n) in enumerate(times):
+        j = i % per_sample
+        key = f"level {j // 2} {'shadow' if j % 2 else 'closest'}"
+        out.setdefault(key, []).append(round(ms, 4))
+    return out
+
+
+def phase_cluster_main(rec):
+    """accel="cluster": thai2 1024x1024, render(16) (or render(4) when the
+    warm-up says render(16) would pass 60 s)."""
+    import numpy as np
+    import torch
+    import raytracer_tpu_torch as rtx
+    rt = rtx.create_raytracer_from_file(
+        os.path.join(REPO, "data", "thai2.dae"), width=1024, height=1024,
+        accel="cluster")
+    g = rt.intersector.packed
+    assert (g.num_clusters, g.C) == (157, 128), (g.num_clusters, g.C)
+    t0 = time.perf_counter()
+    rt.render(1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    spp = 16 if 16 * warm <= 60.0 else 4
+    log(f"cluster warm-up render(1): {warm:.3f} s; timing render({spp})"
+        + ("" if spp == 16 else " (render(16) would pass 60 s)"))
+    rt.film.clear()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(timing=True)
+    t0 = time.perf_counter()
+    hdr = rt.render(spp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, times = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in cluster render({spp}): {counts}")
+    assert counts == {"bvh_spawn": 0, "bvh_shadow_shade": 0,
+                      "bvh_closest": 0, "cluster_closest": 6 * spp}, counts
+    assert hdr.shape == (1024, 1024, 3) and np.isfinite(hdr).all()
+    nonblack = float((hdr.sum(-1) > 0).mean())
+    mrays = 1024 * 1024 * spp / secs / 1e6
+    levels = by_level(times["cluster_closest"], 6)
+    log(f"cluster render({spp}) thai2 1024x1024: {secs:.4f} s, {mrays:.4f} "
+        f"primary Mrays/s, nonblack {nonblack:.4f}, peak {peak} B allocated")
+    for key, lst in levels.items():
+        log(f"  cluster_closest {key}: mean {sum(lst) / len(lst):.3f} ms "
+            f"over {len(lst)} launches")
+    assert nonblack > 0.05, "image is black"
+    rec["cluster_main"] = dict(spp=spp, seconds=secs, mrays=mrays,
+                               nonblack=nonblack, peak_bytes=peak,
+                               launches=counts, per_level_ms=levels)
+    return counts["cluster_closest"], times["cluster_closest"], rt
+
+
+def phase_bvh_trace(rt, rec):
+    """The composable wavefront over the BVH without records (what
+    __graft_entry__.entry() runs) at full frame: 1 sample, 2 bounces."""
+    import torch
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.wavefront import trace_radiance
+    isect = rtx.make_intersector("bvh", rt.scene_buffers)
+    assert not isect.supports_fused_spawn
+    o, d = frame_rays(rt, seed=8)
+    trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(9, "cuda")],
+                   isect, 2, 1)                              # warm-up
+    set_counts(timing=True)
+    t0 = time.perf_counter()
+    rad = trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(10, "cuda")],
+                         isect, 2, 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, times = read_counts()
+    log(f"launches in the BVH trace_radiance frame: {counts}")
+    assert counts == {"bvh_spawn": 0, "bvh_shadow_shade": 0,
+                      "bvh_closest": 6, "cluster_closest": 0}, counts
+    assert rad.shape == (o.shape[0], 3) and bool(rad.isfinite().all())
+    nonblack = float((rad.sum(-1) > 0).float().mean())
+    levels = by_level(times["bvh_closest"], 6)
+    log(f"BVH trace_radiance 1024x1024 1 spp: {secs * 1e3:.3f} ms, "
+        f"{o.shape[0] / secs / 1e6:.4f} primary Mrays/s, nonblack "
+        f"{nonblack:.4f}; bvh_closest per level {levels}")
+    assert nonblack > 0.05, "image is black"
+    rec["bvh_trace"] = dict(seconds=secs, nonblack=nonblack, launches=counts,
+                            per_level_ms=levels)
+    return counts["bvh_closest"], times["bvh_closest"]
+
+
+def phase_profile(what, rt, spp, rec):
+    """torch.profiler over one render(spp): device time by kernel and the
+    device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt.render(8)
+        rt.render(spp)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.device_time_total / 1e3, e.count)
@@ -397,11 +775,12 @@ def phase_profile(rt, rec):
                and e.device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
-    log(f"profile render(8): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall_ms:.1f} %)")
+    log(f"profile {what} render({spp}): wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f} %)")
     for name, ms, n in kernels[:15]:
         log(f"  {ms:9.3f} ms  {n:4d}x  {name[:100]}")
-    rec["profile"] = dict(wall_ms=wall_ms, busy_ms=busy, kernels=kernels[:40])
+    rec[f"profile_{what}"] = dict(wall_ms=wall_ms, busy_ms=busy,
+                                  kernels=kernels[:40])
 
 
 def main(argv):
@@ -425,7 +804,7 @@ def main(argv):
         return 2
     sys.path.insert(0, REPO)
     import raytracer_tpu_torch as rtx
-    from raytracer_tpu_torch.ops import cuda_bvh
+    from raytracer_tpu_torch.ops import cuda_build
 
     rec = {}
     card = card_line()
@@ -435,12 +814,14 @@ def main(argv):
     rec["card"] = card
 
     t0 = time.perf_counter()
-    report = cuda_bvh.build(verbose=True)
+    reports = cuda_build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     log(f"built kernels in {build_s:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log("  " + line.strip())
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()):
+                log(f"  {name}: " + line.strip())
     rec["build_s"] = build_s
 
     size = 256 if args.quick else 1024
@@ -448,28 +829,51 @@ def main(argv):
         os.path.join(REPO, "data", "thai2.dae"), width=size, height=size,
         triangles_per_leaf=256)
     checks = phase_kernels(rt, args.quick, rec)
+    closest = phase_closest_kernels(rt, args.quick, rec)
     if args.quick:
         return 0
     phase_render_compare(rec)
+    phase_render_compare_cluster(rec)
     launches, per_launch = phase_main(rt, rec)
+    n_cluster, cluster_times, rt_cluster = phase_cluster_main(rec)
+    n_bvh, bvh_times = phase_bvh_trace(rt, rec)
     if args.profile:
-        phase_profile(rt, rec)
+        phase_profile("fused", rt, 8, rec)
+        phase_profile("cluster", rt_cluster, 2, rec)
 
+    common = dict(route="cuda", library_ms=None)
     kernels = []
     for name, replaces in (("spawn", "raytracer_tpu/ops/pallas_bvh.py:985"),
                            ("shadow_shade",
                             "raytracer_tpu/ops/pallas_bvh.py:1068")):
         c = checks[name]
         kernels.append({
-            "name": f"bvh_{name}", "route": "cuda",
+            "name": f"bvh_{name}", **common,
             "source": "raytracer_tpu_torch/csrc/cuda_bvh.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": None, "shape": f"main-path level 1, {c['rays']} rays",
+            "shape": f"main-path level 1, {c['rays']} rays",
             "levels_ms": [lv["ms"] for lv in c["levels"]],
             "levels_bound_ms": [lv["bound_ms"] for lv in c["levels"]],
             "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
+    for name, source, replaces, n, times in (
+            ("bvh_closest", "raytracer_tpu_torch/csrc/cuda_bvh.cu",
+             "raytracer_tpu/ops/pallas_bvh.py:411", n_bvh, bvh_times),
+            ("cluster_closest", "raytracer_tpu_torch/csrc/cuda_cluster.cu",
+             "raytracer_tpu/ops/pallas_intersect.py:312", n_cluster,
+             cluster_times)):
+        c = closest[name]
+        kernels.append({
+            "name": name, **common, "source": source, "replaces": replaces,
+            "launches": n, "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "shape": f"trace_radiance {c['batch']}, {c['rays']} rays",
+            "levels_ms": {lv["batch"]: lv["ms"] for lv in c["levels"]},
+            "levels_bound_ms": {lv["batch"]: lv["bound_ms"]
+                                for lv in c["levels"]},
+            "main_path_ms": by_level(times, 6)})
     line = json.dumps({"kernels": kernels})
     log(line)
     rec["kernels"] = kernels

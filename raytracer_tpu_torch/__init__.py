@@ -1,10 +1,12 @@
 """raytracer_tpu_torch — the PyTorch/CUDA port of `raytracer_tpu`.
 
 The same wavefront ray tracer (COLLADA scenes, jittered pinhole rays,
-packed two-level BVH, Phong shading with shadow rays, two bounce levels,
-film and tonemap), with its fused wavefront levels running as
-hand-written CUDA kernels on an NVIDIA Hopper card
-(`ops/cuda_bvh.py`, `csrc/cuda_bvh.cu`).  Entry points run on `cuda`
+the packed two-level BVH, the Morton cluster grid or brute force, Phong
+shading with shadow rays, two bounce levels, film and tonemap), with its
+closest-hit and fused wavefront kernels hand-written in CUDA for an
+NVIDIA Hopper card (`ops/cuda_bvh.py`, `ops/cuda_cluster.py`,
+`csrc/`).  `accel` picks the accelerator: "bvh" (default), "cluster"
+or "brute".  Entry points run on `cuda`
 unless the caller passes `device="cpu"`, which runs the kernels' plain
 PyTorch versions.  The package imports neither JAX nor `raytracer_tpu`.
 
@@ -14,6 +16,7 @@ Public facade mirrors the reference library API
 
 from raytracer_tpu_torch.core.engine import (DEFAULT_TRIANGLES_PER_LEAF,
                                              RayTracer, TorchDraws)
+from raytracer_tpu_torch.core.intersectors import make_intersector
 from raytracer_tpu_torch.models.collada import ColladaLoader, SceneLoadError
 
 __version__ = "0.1.0"
@@ -48,4 +51,5 @@ __all__ = [
     "SceneLoadError",
     "create_raytracer",
     "create_raytracer_from_file",
+    "make_intersector",
 ]

@@ -1,5 +1,5 @@
 """The RayTracer engine: progressive additive rendering and batch
-rendering over the fused wavefront (PyTorch port of
+rendering over the wavefront (PyTorch port of
 ``raytracer_tpu/core/engine.py``).
 
 Capability parity with the reference render loop (reference:
@@ -14,6 +14,13 @@ raytracer_lib/src/raytracer/mod.rs:32-129):
 - Camera motion helpers clear the film (raytracer/src/main.rs:123-163).
 - `render(spp)` is the batch API: whole frames, `pool` samples per
   wavefront, rays in 16x8 pixel tiles.
+
+The accelerator is `accel` ("bvh", "cluster" or "brute") or a ready
+`intersector=`.  An intersector with the fused kernels (the BVH, once
+its shading records are installed here) runs `trace_radiance_fused`
+with 8 samples pooled per wavefront; any other runs the composable
+`trace_radiance`, one sample per wavefront, with the packed slot
+records when the intersector has a slot layout (`perm`).
 
 Known reference bug, reproduced only behind `compat_v_bug=True`: the
 reference computes the pixel row for ray generation as `idx / height`
@@ -32,14 +39,15 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.film import Film
+from raytracer_tpu_torch.core.intersectors import make_intersector
 from raytracer_tpu_torch.core.shade import build_slot_records
 from raytracer_tpu_torch.core.tonemap import pack_u32, simple_map
 from raytracer_tpu_torch.core.wavefront import (RECURSIONS, SORT_KEY_MODES,
                                                 SORT_PAYLOADS, SUB_SPREAD,
+                                                trace_radiance,
                                                 trace_radiance_fused)
 from raytracer_tpu_torch.models.camera import generate_rays
 from raytracer_tpu_torch.models.types import resolve_device
-from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 
 # reference: oct_tree_intersector.rs:12
 DEFAULT_TRIANGLES_PER_LEAF = 70
@@ -70,6 +78,7 @@ class TorchDraws:
 
 class RayTracer:
     def __init__(self, scene, width: int, height: int,
+                 intersector=None,
                  triangles_per_leaf: int = DEFAULT_TRIANGLES_PER_LEAF,
                  accel: str = "bvh",
                  recursions: int = RECURSIONS, spread: int = SUB_SPREAD,
@@ -82,8 +91,6 @@ class RayTracer:
                  seed: int = 0,
                  device=None,
                  draws=None):
-        if accel != "bvh":
-            raise ValueError(f"accel {accel!r} is not ported; use 'bvh'")
         if sort_key_mode not in SORT_KEY_MODES:
             raise ValueError(f"unknown sort_key_mode {sort_key_mode!r}")
         if sort_payload not in SORT_PAYLOADS:
@@ -106,15 +113,15 @@ class RayTracer:
         self.sort_key_mode = sort_key_mode
         self.sort_payload = sort_payload
         self.spp_pool = spp_pool
-        self.intersector = BVHIntersector(
-            self.scene_buffers, triangles_per_leaf=triangles_per_leaf,
-            device=self.device, **(accel_opts or {}))
-        # full record format: normal xyz + diffuse rgb (+ tex id)
-        has_tex = bool((self.scene_buffers.mat_tex_id >= 0).any())
-        records = build_slot_records(self.scene_arrays,
-                                     self.intersector.perm,
-                                     self.intersector.perm.shape[0])
-        self.intersector.set_shade_records(records[:, :7 if has_tex else 6])
+        if intersector is None:
+            opts = dict(accel_opts or {})
+            if accel != "brute":
+                opts["device"] = self.device
+            intersector = make_intersector(
+                accel, self.scene_buffers,
+                triangles_per_leaf=triangles_per_leaf, **opts)
+        self.intersector = intersector
+        self._shade_args = self._shade_fast_args()
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
         self._row_block_cache = {}
@@ -125,11 +132,45 @@ class RayTracer:
         """reference: build_raytracer (lib.rs:29-44)"""
         return cls(scene, width, height, **kwargs)
 
+    def _shade_fast_args(self):
+        """Forward-only shading inputs (engine.py:108-133): the packed
+        slot records, whether the scene has textures, and whether the
+        intersector extracts records in its kernel.  Intersectors with a
+        slot layout (`perm`) get the records, installed into the ones
+        that take them (full format: normal xyz + diffuse rgb (+ tex
+        id)); brute force reads the live scene arrays instead."""
+        isect = self.intersector
+        if getattr(isect, "perm", None) is None:
+            return None, True, False
+        has_tex = bool((self.scene_buffers.mat_tex_id >= 0).any())
+        records = build_slot_records(self.scene_arrays, isect.perm,
+                                     isect.perm.shape[0])
+        if hasattr(isect, "set_shade_records"):
+            isect.set_shade_records(records[:, :7 if has_tex else 6])
+        fused = bool(getattr(isect, "supports_fused_shade", False))
+        return records, has_tex, fused
+
+    @property
+    def fused(self) -> bool:
+        """True when the render runs the fused wavefront kernels."""
+        return bool(getattr(self.intersector, "supports_fused_spawn", False))
+
     def _radiance(self, origins, dirs, streams, pool):
-        return trace_radiance_fused(
+        """Radiance of one wavefront: the fused kernels when the
+        intersector has them (engine.py:135-155), the composable
+        wavefront otherwise."""
+        if self.fused:
+            return trace_radiance_fused(
+                self.scene_arrays, origins, dirs, streams, self.intersector,
+                self.recursions, self.spread,
+                sort_key_mode=self.sort_key_mode, pool=pool,
+                sort_payload=self.sort_payload)
+        records, has_tex, fused_shade = self._shade_args
+        return trace_radiance(
             self.scene_arrays, origins, dirs, streams, self.intersector,
-            self.recursions, self.spread, sort_key_mode=self.sort_key_mode,
-            pool=pool, sort_payload=self.sort_payload)
+            self.recursions, self.spread, shade_records=records,
+            has_textures=has_tex, fused_shade=fused_shade,
+            sort_key_mode=self.sort_key_mode)
 
     # Spatial tile size for ray ordering: rays that share a kernel block
     # come from a compact 16x8 pixel tile, so culling acts on coherent
@@ -233,13 +274,19 @@ class RayTracer:
         return img[:, :H, :W].reshape(pool, H * W, 3)
 
     def _choose_pool(self, spp: int) -> int:
-        """Largest divisor of spp within the pool budget (auto: 8)."""
-        budget = DEFAULT_POOL if self.spp_pool is None else self.spp_pool
+        """Largest divisor of spp within the pool budget (auto: 8 on the
+        fused path, else 1).  Only the fused wavefront pools samples
+        (engine.py:262-266), so a budget above 1 off it raises."""
+        budget = self.spp_pool
+        if budget is None:
+            budget = DEFAULT_POOL if self.fused else 1
         budget = max(1, min(budget, spp))
-        for p in range(budget, 0, -1):
-            if spp % p == 0:
-                return p
-        return 1
+        pool = next(p for p in range(budget, 0, -1) if spp % p == 0)
+        if pool > 1 and not self.fused:
+            raise ValueError(f"spp_pool {self.spp_pool} needs the fused "
+                             f"wavefront; {type(self.intersector).__name__} "
+                             "renders one sample per wavefront")
+        return pool
 
     def render(self, spp: int = 1) -> np.ndarray:
         """Render the full frame at `spp` samples per pixel into the film;

@@ -1,13 +1,15 @@
-// Hand-written CUDA kernels (sm_90a) for the fused wavefront levels of
-// the PyTorch port.  They replace the two Pallas TPU kernels of
-// raytracer_tpu/ops/pallas_bvh.py that the main render path runs:
+// Hand-written CUDA kernels (sm_90a) for the packed two-level BVH of
+// the PyTorch port.  They replace the three Pallas TPU kernels of
+// raytracer_tpu/ops/pallas_bvh.py:
 //
 //   rtx_bvh_spawn         <- pallas_bvh_spawn        (pallas_bvh.py:985)
 //   rtx_bvh_shadow_shade  <- pallas_bvh_shadow_shade (pallas_bvh.py:1068)
+//   rtx_bvh_closest       <- pallas_bvh_closest      (pallas_bvh.py:411)
 //
-// Both walk the packed two-level BVH of ops/bvh.py (superclusters of G
+// All walk the packed two-level BVH of ops/bvh.py (superclusters of G
 // rows, rows of C triangle lanes, S segment boxes per row) for the
-// closest hit, then run their epilogue in the same thread:
+// closest hit.  The first two are the fused wavefront levels and run
+// their epilogue in the same thread:
 //   spawn:        the winning triangle's shading record (+ u/v for
 //                 textured scenes), one shadow ray per light, one
 //                 hemisphere bounce ray per child and its dir6/dir9 sort
@@ -16,6 +18,12 @@
 //                 hit, reference mod.rs:224-230), then Phong
 //                 (c * dot_ln + (v.r)^32) * light_color where lit
 //                 (pallas_bvh.py:934-960).
+// rtx_bvh_closest is the generic closest hit of the composable wavefront
+// (BVHIntersector.query/shadow): t, u, v and the packed slot, or t only
+// in shadow mode, plus the winning triangle's record values when record
+// planes are given; its t limit is a runtime argument (static on the
+// TPU).  The TPU kernel's exact_order and stream variants pick the walk
+// order and the staging only; this kernel has one form for all of them.
 //
 // Design: one thread per ray.  Each thread walks the superclusters in
 // one of six precomputed centroid orders, picked from its own dominant
@@ -89,20 +97,52 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / (fabsf(x) < kDirTiny ? kDirTiny : x);
 }
 
+// One axis of the slab test for a ray parallel to the slab (a direction
+// component below 1e-30 in magnitude): the ray lies inside the slab
+// (lo <= o <= hi, no bound on t) or misses the box.  The TPU kernel
+// multiplies by the clamped inverse instead, which gives an exit of 0 for
+// a ray lying in a box's max face, so tmax > 0 fails for that ray alone;
+// its 128-ray block gate still tests the box when a block-mate enters it,
+// and its own test expects such rays to hit
+// (tests/test_pallas_bvh.py::test_bvh_axis_parallel_rays_zero_direction).
+// A per-ray walk has no block-mates, so it takes the parallel case
+// exactly.
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
+                                          float d, float inv, float& tmin,
+                                          float& tmax) {
+  if (fabsf(d) < kDirTiny) {
+    if (o < lo || o > hi) tmax = -kBigT;
+    return;
+  }
+  const float t1 = (lo - o) * inv, t2 = (hi - o) * inv;
+  tmin = fmaxf(tmin, fminf(t1, t2));
+  tmax = fminf(tmax, fmaxf(t1, t2));
+}
+
 // Slab entry distance of a box [min xyz, max xyz, pad, pad]; BIG_T when
 // the ray misses it or the box lies behind (pallas_bvh.py:166-175).
+// `parallel`: the ray has a component below 1e-30 and each axis takes
+// slab_axis; the walk decides it once per ray, so rays without such a
+// component (all of a render's) run the plain six-product test.
 __device__ __forceinline__ float slab_entry(const float* __restrict__ box,
                                             const Ray& r, float ix, float iy,
-                                            float iz) {
+                                            float iz, bool parallel) {
   const float4 lo = __ldg(reinterpret_cast<const float4*>(box));
   const float4 hi = __ldg(reinterpret_cast<const float4*>(box) + 1);
-  const float tx1 = (lo.x - r.ox) * ix, tx2 = (lo.w - r.ox) * ix;
-  const float ty1 = (lo.y - r.oy) * iy, ty2 = (hi.x - r.oy) * iy;
-  const float tz1 = (lo.z - r.oz) * iz, tz2 = (hi.y - r.oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                           fminf(tz1, tz2));
-  const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                           fmaxf(tz1, tz2));
+  float tmin, tmax;
+  if (parallel) {
+    tmin = -kBigT;
+    tmax = kBigT;
+    slab_axis(lo.x, lo.w, r.ox, r.dx, ix, tmin, tmax);
+    slab_axis(lo.y, hi.x, r.oy, r.dy, iy, tmin, tmax);
+    slab_axis(lo.z, hi.y, r.oz, r.dz, iz, tmin, tmax);
+  } else {
+    const float tx1 = (lo.x - r.ox) * ix, tx2 = (lo.w - r.ox) * ix;
+    const float ty1 = (lo.y - r.oy) * iy, ty2 = (hi.x - r.oy) * iy;
+    const float tz1 = (lo.z - r.oz) * iz, tz2 = (hi.y - r.oz) * iz;
+    tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+    tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  }
   return (tmax >= tmin && tmax > 0.0f) ? tmin : kBigT;
 }
 
@@ -152,19 +192,22 @@ __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
   Hit h{kBigT, 0.0f, 0.0f, -1, 0};
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   const float ax = fabsf(r.dx), ay = fabsf(r.dy), az = fabsf(r.dz);
+  const bool par = ax < kDirTiny || ay < kDirTiny || az < kDirTiny;
   int axis = ay > ax ? 1 : 0;
   axis = az > fmaxf(ax, ay) ? 2 : axis;
   const float sgn = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
   const int* __restrict__ order = b.orders + (axis * 2 + (sgn < 0.0f)) * b.K1;
   for (int k = 0; k < b.K1; ++k) {
     const int kk = __ldg(order + k);
-    if (!(slab_entry(b.sc + 8LL * kk, r, ix, iy, iz) < fminf(h.t, limit)))
+    if (!(slab_entry(b.sc + 8LL * kk, r, ix, iy, iz, par) <
+          fminf(h.t, limit)))
       continue;
     for (int g = 0; g < b.G; ++g) {
       const long long row = static_cast<long long>(kk) * b.G + g;
       float m = kBigT;
       for (int s = 0; s < b.S; ++s)
-        m = fminf(m, slab_entry(b.seg + 8LL * (row * b.S + s), r, ix, iy, iz));
+        m = fminf(m, slab_entry(b.seg + 8LL * (row * b.S + s), r, ix, iy,
+                                iz, par));
       if (!(m < fminf(h.t, limit))) continue;
       ++h.rows;
       mt_row(b, row, r, h);
@@ -360,6 +403,43 @@ __global__ void shadow_shade_kernel(ShadowArgs a) {
   }
 }
 
+struct ClosestArgs {
+  Bvh bvh;
+  const float* __restrict__ rays;    // (6, R) origin xyz, direction xyz
+  long long R;
+  float limit;                       // exact below it (pallas t_limit)
+  const float* __restrict__ rec;     // (n_rec, ns) record planes or null
+  int n_rec;
+  float* t_out;     // (R,) BIG_T on a miss
+  float* uv_out;    // (2, R) or null (shadow mode)
+  int* slot_out;    // (R,) packed slot, -1 on a miss; or null (shadow mode)
+  float* rec_out;   // (n_rec, R) winning record, 0 on a miss
+  int* rows_out;    // (R,) or null: rows that ran Moller-Trumbore
+};
+
+// Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel): the same walk
+// as the fused kernels, the winning record taken as the spawn epilogue
+// takes it.
+__global__ void closest_kernel(ClosestArgs a) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= a.R) return;
+  const long long R = a.R;
+  const Ray r{a.rays[i], a.rays[R + i], a.rays[2 * R + i],
+              a.rays[3 * R + i], a.rays[4 * R + i], a.rays[5 * R + i]};
+  Hit h{kBigT, 0.0f, 0.0f, -1, 0};
+  if (fabsf(r.ox) < kAliveLimit) h = traverse(a.bvh, r, a.limit);
+  if (a.rows_out) a.rows_out[i] = h.rows;
+  a.t_out[i] = h.t;
+  if (a.uv_out) {
+    a.uv_out[i] = h.u;
+    a.uv_out[R + i] = h.v;
+  }
+  if (a.slot_out) a.slot_out[i] = static_cast<int>(h.slot);
+  for (int k = 0; k < a.n_rec; ++k)
+    a.rec_out[k * R + i] =
+        h.slot >= 0 ? __ldg(a.rec + k * a.bvh.ns + h.slot) : 0.0f;
+}
+
 Bvh make_bvh(const float* tri, const float* seg, const float* sc,
              const int* orders, long long ns, int C, int S, int G, int K1) {
   return Bvh{tri, seg, sc, orders, ns, C, S, G, K1};
@@ -400,5 +480,23 @@ extern "C" int rtx_bvh_shadow_shade(
   const long long grid = (NS + block - 1) / block;
   shadow_shade_kernel<<<static_cast<unsigned>(grid), block, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rtx_bvh_closest(
+    const float* rays, long long R, const float* tri, const float* seg,
+    const float* sc, const int* orders, long long ns, int C, int S, int G,
+    int K1, float limit, const float* rec, int n_rec, float* t_out,
+    float* uv_out, int* slot_out, float* rec_out, int* rows_out, int block,
+    void* stream) {
+  if (n_rec < 0 || n_rec > kMaxRec || (n_rec > 0 && (!rec || !rec_out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  ClosestArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
+                rays, R, limit, rec, n_rec, t_out, uv_out, slot_out,
+                rec_out, rows_out};
+  const long long grid = (R + block - 1) / block;
+  closest_kernel<<<static_cast<unsigned>(grid), block, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@
 The port's own loader of the same source (the JAX package's
 ``raytracer_tpu/native`` cannot be imported without JAX): it compiles
 the shared library on first use with g++ into ``build/torch_native/``
-and binds only the two parsers the COLLADA loader uses.  Each has the
-same numpy fallback, so scene loading works without a toolchain; this
-is host parsing, not the device path.
+and binds the two parsers the COLLADA loader uses and the Morton sort
+of the cluster-grid builder.  Each has the same numpy fallback, so
+scene loading works without a toolchain; this is host work, not the
+device path.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ def _load():
         lib.rtx_parse_ints.argtypes = [
             ctypes.c_char_p, ctypes.c_long,
             ctypes.POINTER(ctypes.c_int64), ctypes.c_long]
+        lib.rtx_morton_order.restype = None
+        lib.rtx_morton_order.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_int32)]
         _lib = lib
         return _lib
 
@@ -97,3 +102,21 @@ def parse_ints(text: str) -> np.ndarray:
         if n >= 0:
             return out[:n].copy()
     return np.array([int(x) for x in text.split()], dtype=np.int64)
+
+
+def morton_order(tri_verts: np.ndarray) -> np.ndarray:
+    """tris (N, 3, 3) float32 -> stable Morton argsort (N,) int32."""
+    lib = _load()
+    tris = np.ascontiguousarray(tri_verts, dtype=np.float32)
+    if lib is not None:
+        out = np.empty(len(tris), dtype=np.int32)
+        lib.rtx_morton_order(
+            tris.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(tris),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out
+    from raytracer_tpu_torch.ops.cluster import morton_codes
+    centroids = tris.mean(axis=1)
+    lo = tris.reshape(-1, 3).min(axis=0)
+    hi = tris.reshape(-1, 3).max(axis=0)
+    return np.argsort(morton_codes(centroids, lo, hi),
+                      kind="stable").astype(np.int32)

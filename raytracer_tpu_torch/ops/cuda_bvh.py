@@ -1,21 +1,24 @@
-"""Packed two-level BVH on the GPU: the fused wavefront kernels, their
-plain PyTorch versions, and the intersector that drives them (PyTorch
-port of ``raytracer_tpu/ops/pallas_bvh.py``).
+"""Packed two-level BVH on the GPU: the kernels, their plain PyTorch
+versions, and the intersector that drives them (PyTorch port of
+``raytracer_tpu/ops/pallas_bvh.py``).
 
-Two CUDA kernels (``csrc/cuda_bvh.cu``) replace the TPU kernels on the
-render path:
+Three CUDA kernels (``csrc/cuda_bvh.cu``) replace the TPU kernels:
 
 - `bvh_spawn` <- `pallas_bvh_spawn` (pallas_bvh.py:985): closest hit of
   each ray, the winning triangle's shading record (+ u/v on textured
   scenes), per-light shadow rays, per-child bounce rays and sort keys.
 - `bvh_shadow_shade` <- `pallas_bvh_shadow_shade` (pallas_bvh.py:1068):
   windowed-closest occlusion of the shadow rays and Phong radiance.
+- `bvh_closest` <- `pallas_bvh_closest` (pallas_bvh.py:411): the
+  generic closest hit (t, u, v, slot, optional record values; t only in
+  shadow mode) of the composable wavefront's `query` and `shadow`.
 
 What bounds them on an H100 and what the design does about it is noted
 at the top of the CUDA source.  Each wrapper runs the plain version for
 tensors on the CPU only; for CUDA tensors it launches its kernel or
 raises.  Each keeps a launch count (`bvh_spawn.launches`,
-`bvh_shadow_shade.launches`) that only a kernel launch raises.
+`bvh_shadow_shade.launches`, `bvh_closest.launches`) that only a kernel
+launch raises.
 
 Rays are plane form: one (6, R) float32 tensor [ox, oy, oz, dx, dy, dz]
 per batch (the TPU kernels took six (nb, 128) planes; the port needs no
@@ -29,20 +32,19 @@ The kernels are built with nvcc for sm_90a on first use into
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.intersect import BIG_T, F32_EPSILON
+from raytracer_tpu_torch.core.intersect import BIG_T, moller_trumbore
 from raytracer_tpu_torch.core.shade import _normalize, pow32
 from raytracer_tpu_torch.models.types import resolve_device
+from raytracer_tpu_torch.ops import cuda_build
 from raytracer_tpu_torch.ops.bvh import build_bvh2
+from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
+                                                counted, cuda_stream, event,
+                                                ptr, raise_on)
 
 DEFAULT_RAY_BLOCK = 128      # CUDA threads per block (one ray each)
 
@@ -65,64 +67,24 @@ MT_OPS = 54
 # near 1 GB (about 20 live float32 temporaries per ray-slot pair).
 _PLAIN_PAIR_BUDGET = 12_500_000
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_ROOT, "csrc", "cuda_bvh.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "torch_kernels")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libcuda_bvh.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
 
-_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile csrc/cuda_bvh.cu into build/torch_kernels/libcuda_bvh.so
-    (unconditionally) and return the compiler's output; `verbose` adds
-    ptxas register/spill reports."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return proc.stdout + proc.stderr
+def _setup(lib):
+    lib.rtx_bvh_spawn.restype = I
+    lib.rtx_bvh_spawn.argtypes = [
+        P, L, P, I, P, I, P, P, I, P, P, P, L, I, I, I, I,
+        Fl, Fl, Fl, Fl, Fl, Fl, I, P, P, P, P, P, P, P, I, P]
+    lib.rtx_bvh_shadow_shade.restype = I
+    lib.rtx_bvh_shadow_shade.argtypes = [
+        P, L, L, P, P, P, P, P, P, P, P, L, I, I, I, I, P, P, I, P]
+    lib.rtx_bvh_closest.restype = I
+    lib.rtx_bvh_closest.argtypes = [
+        P, L, P, P, P, P, L, I, I, I, I, Fl, P, I, P, P, P, P, P, I, P]
 
 
 def _load():
-    """The bound library, built first if missing or older than its
-    source."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH)):
-            build()
-        lib = ctypes.CDLL(_LIB_PATH)
-        P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.rtx_bvh_spawn.restype = I
-        lib.rtx_bvh_spawn.argtypes = [
-            P, L, P, I, P, I, P, P, I, P, P, P, L, I, I, I, I,
-            Fl, Fl, Fl, Fl, Fl, Fl, I, P, P, P, P, P, P, P, I, P]
-        lib.rtx_bvh_shadow_shade.restype = I
-        lib.rtx_bvh_shadow_shade.argtypes = [
-            P, L, L, P, P, P, P, P, P, P, P, L, I, I, I, I, P, P, I, P]
-        _lib = lib
-        return _lib
+    """The bound library (csrc/cuda_bvh.cu), built first if missing or
+    older than its source."""
+    return cuda_build.load("cuda_bvh", _setup)
 
 
 @dataclass
@@ -147,37 +109,6 @@ class PackedBVH:
     @property
     def num_superclusters(self) -> int:
         return self.sc_aabb.shape[0]
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _check_cuda(name, *tensors):
-    for t in tensors:
-        if t is None:
-            continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: every operand must be on the same "
-                             f"CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-
-
-def _event(wrapper):
-    """A recorded CUDA timing event when the wrapper's `events` list is
-    set (a caller timing the main path's launches), else None."""
-    if wrapper.events is None:
-        return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
-def _raise_on(code, name):
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} "
-                           f"({torch.cuda.get_device_name()})")
 
 
 # --- plain PyTorch versions ---------------------------------------------
@@ -239,36 +170,17 @@ def mt_plain(rays, tri):
     kernels' arithmetic and acceptance expression.  rays (6, n), tri
     (9, NS).  Returns t, u, v, each (n, NS); t is BIG_T where a pair is
     rejected."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        tri[k][None, :] for k in range(9))
-    ox, oy, oz, dx, dy, dz = (rays[k][:, None] for k in range(6))
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    non_par = det.abs() >= F32_EPSILON
-    inv_det = 1.0 / torch.where(non_par, det, torch.ones_like(det))
-    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-    uu = (tvx * px + tvy * py + tvz * pz) * inv_det
-    del px, py, pz, det
-    qx = tvy * e1z - tvz * e1y
-    qy = tvz * e1x - tvx * e1z
-    qz = tvx * e1y - tvy * e1x
-    del tvx, tvy, tvz
-    vv = (dx * qx + dy * qy + dz * qz) * inv_det
-    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    del qx, qy, qz, inv_det
-    ok = non_par & (torch.minimum(torch.minimum(uu, vv),
-                                  torch.minimum(1.0 - (uu + vv), tt))
-                    >= 0.0)
-    return torch.where(ok, tt, torch.full_like(tt, BIG_T)), uu, vv
+    return moller_trumbore(*(rays[k][:, None] for k in range(6)),
+                           *(tri[k][None, :] for k in range(9)))
 
 
-def closest_plain(rays, tri):
+def closest_plain(rays, tri, cull=None):
     """Dense closest hit: `mt_plain` of every live ray against every
     packed slot, in slot order; the first minimal slot wins a tie (=
     strict '<' across rows, first lane within a row).  Dead rays (|ox|
-    >= 1e30) miss without being tested.
+    >= 1e30) miss without being tested.  `cull(rays)`, when given,
+    returns an (n, NS) bool mask of the pairs that a kernel's walk never
+    tests; those pairs miss.
 
     Returns t (R,) [BIG_T on a miss], slot (R,) int64 [-1 on a miss],
     u, v (R,) [0 on a miss]."""
@@ -283,6 +195,8 @@ def closest_plain(rays, tri):
     for s in range(0, live.numel(), chunk):
         ids = live[s:s + chunk]
         tt, uu, vv = mt_plain(rays[:, ids], tri)
+        if cull is not None:
+            tt = torch.where(cull(rays[:, ids]), BIG_T, tt)
         j = tt.argmin(dim=1, keepdim=True)
         tmin = tt.gather(1, j)[:, 0]
         hit = tmin < BIG_T
@@ -383,6 +297,20 @@ def bvh_shadow_shade_plain(shadow_rays, normal, color, view, light_color,
     return out.reshape(3, NS)
 
 
+def bvh_closest_plain(rays, bvh: PackedBVH, rec=None, *, shadow=False):
+    """Plain PyTorch version of the closest-hit kernel (see
+    `bvh_closest`): the dense closest hit, which is exact at any limit."""
+    t, slot, uu, vv = closest_plain(rays, bvh.tri)
+    if shadow:
+        return dict(t=t)
+    out = dict(t=t, u=uu, v=vv, slot=slot.to(torch.int32))
+    if rec is not None:
+        out["rec"] = torch.where(
+            (slot >= 0)[None, :], rec[:, slot.clamp(min=0)],
+            torch.zeros((), dtype=rec.dtype, device=rec.device))
+    return out
+
+
 # --- wrappers -------------------------------------------------------------
 
 
@@ -413,7 +341,7 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
                                world_inv_span=world_inv_span,
                                children=children, emit_uv=emit_uv,
                                key_mode=key_mode)
-    _check_cuda("bvh_spawn", rays, gauss, light_pos, rec, bvh.tri,
+    check_cuda("bvh_spawn", rays, gauss, light_pos, rec, bvh.tri,
                 bvh.seg_aabb, bvh.sc_aabb, bvh.orders, rows_out)
     R = rays.shape[1]
     b = children
@@ -433,19 +361,17 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
     child = torch.empty((6, R * b), **f32)
     keys = torch.empty((R * b,), dtype=torch.int32, device=dev)
     lib = _load()
-    start = _event(bvh_spawn)
+    start = event(bvh_spawn)
     code = lib.rtx_bvh_spawn(
-        _ptr(rays), R, _ptr(gauss), b, _ptr(light_pos), L, _ptr(bvh.tri),
-        _ptr(rec), n_rec, _ptr(bvh.seg_aabb), _ptr(bvh.sc_aabb),
-        _ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
+        ptr(rays), R, ptr(gauss), b, ptr(light_pos), L, ptr(bvh.tri),
+        ptr(rec), n_rec, ptr(bvh.seg_aabb), ptr(bvh.sc_aabb),
+        ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
         bvh.num_superclusters, *[float(x) for x in world_lo],
-        *[float(x) for x in world_inv_span], KEY_MODES[key_mode], _ptr(t),
-        _ptr(uv), _ptr(rec_out), _ptr(shadow), _ptr(child), _ptr(keys),
-        _ptr(rows_out), ray_block, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "bvh_spawn")
-    bvh_spawn.launches += 1
-    if start is not None:
-        bvh_spawn.events.append((start, _event(bvh_spawn), R))
+        *[float(x) for x in world_inv_span], KEY_MODES[key_mode], ptr(t),
+        ptr(uv), ptr(rec_out), ptr(shadow), ptr(child), ptr(keys),
+        ptr(rows_out), ray_block, cuda_stream(dev))
+    raise_on(code, "bvh_spawn")
+    counted(bvh_spawn, start, R)
     out = dict(t=t, rec=rec_out, shadow=shadow, children=child, keys=keys)
     if emit_uv:
         out["u"], out["v"] = uv[0], uv[1]
@@ -468,7 +394,7 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
     if shadow_rays.device.type == "cpu":
         return bvh_shadow_shade_plain(shadow_rays, normal, color, view,
                                       light_color, bvh)
-    _check_cuda("bvh_shadow_shade", shadow_rays, normal, color, view,
+    check_cuda("bvh_shadow_shade", shadow_rays, normal, color, view,
                 light_color, bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders,
                 rows_out)
     NS = shadow_rays.shape[1]
@@ -482,17 +408,15 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
             raise ValueError(f"bvh_shadow_shade: {name} {tuple(t.shape)}")
     out = torch.empty((3, NS), dtype=torch.float32, device=normal.device)
     lib = _load()
-    start = _event(bvh_shadow_shade)
+    start = event(bvh_shadow_shade)
     code = lib.rtx_bvh_shadow_shade(
-        _ptr(shadow_rays), NS, R, _ptr(normal), _ptr(color), _ptr(view),
-        _ptr(light_color), _ptr(bvh.tri), _ptr(bvh.seg_aabb),
-        _ptr(bvh.sc_aabb), _ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S,
-        bvh.G, bvh.num_superclusters, _ptr(out), _ptr(rows_out), ray_block,
-        torch.cuda.current_stream(normal.device).cuda_stream)
-    _raise_on(code, "bvh_shadow_shade")
-    bvh_shadow_shade.launches += 1
-    if start is not None:
-        bvh_shadow_shade.events.append((start, _event(bvh_shadow_shade), NS))
+        ptr(shadow_rays), NS, R, ptr(normal), ptr(color), ptr(view),
+        ptr(light_color), ptr(bvh.tri), ptr(bvh.seg_aabb),
+        ptr(bvh.sc_aabb), ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S,
+        bvh.G, bvh.num_superclusters, ptr(out), ptr(rows_out), ray_block,
+        cuda_stream(normal.device))
+    raise_on(code, "bvh_shadow_shade")
+    counted(bvh_shadow_shade, start, NS)
     return out
 
 
@@ -500,24 +424,116 @@ bvh_shadow_shade.launches = 0
 bvh_shadow_shade.events = None
 
 
+def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
+                shadow: bool = False, exact_order=None, stream=False,
+                ray_block: int = DEFAULT_RAY_BLOCK, rows_out=None):
+    """Closest hit of every ray (replaces pallas_bvh_closest,
+    raytracer_tpu/ops/pallas_bvh.py:411).
+
+    rays (6, R) f32 (dead rays: |ox| >= 1e30); rec: optional (n_rec,
+    NL*C) f32 record planes whose winning values come back as "rec";
+    t_limit: the closest hit below it is exact, beyond it the walk may
+    cull (the TPU's static limit, a runtime value here).  shadow=True
+    returns t only.  `exact_order` and `stream` (the TPU kernel's
+    walk-order and HBM-streaming variants) are accepted for parity and
+    change nothing: one walk serves all of them.
+    rows_out: optional (R,) int32 that receives, per ray, the number of
+    rows that ran Moller-Trumbore (kernel only; the work counter).
+
+    Returns a dict: t (R,) [BIG_T on a miss]; unless shadow: u, v (R,)
+    [0 on a miss], slot (R,) int32 packed slot [-1 on a miss], and rec
+    (n_rec, R) [0 on a miss] when record planes were given."""
+    if shadow:
+        rec = None
+    if rays.device.type == "cpu":
+        return bvh_closest_plain(rays, bvh, rec, shadow=shadow)
+    check_cuda("bvh_closest", rays, rec, bvh.tri, bvh.seg_aabb, bvh.sc_aabb,
+               bvh.orders, rows_out)
+    R = rays.shape[1]
+    if rays.shape[0] != 6:
+        raise ValueError(f"bvh_closest: rays {tuple(rays.shape)}")
+    n_rec = 0 if rec is None else rec.shape[0]
+    if rec is not None and (rec.shape[1] != bvh.num_slots or n_rec > 8):
+        raise ValueError(f"bvh_closest: rec {tuple(rec.shape)}")
+    dev = rays.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = torch.empty((R,), **f32)
+    uv = None if shadow else torch.empty((2, R), **f32)
+    slot = None if shadow else torch.empty((R,), dtype=torch.int32,
+                                           device=dev)
+    rec_out = torch.empty((n_rec, R), **f32) if n_rec else None
+    limit = BIG_T if t_limit is None else float(t_limit)
+    lib = _load()
+    start = event(bvh_closest)
+    code = lib.rtx_bvh_closest(
+        ptr(rays), R, ptr(bvh.tri), ptr(bvh.seg_aabb), ptr(bvh.sc_aabb),
+        ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
+        bvh.num_superclusters, limit, ptr(rec), n_rec, ptr(t), ptr(uv),
+        ptr(slot), ptr(rec_out), ptr(rows_out), ray_block, cuda_stream(dev))
+    raise_on(code, "bvh_closest")
+    counted(bvh_closest, start, R)
+    if shadow:
+        return dict(t=t)
+    out = dict(t=t, u=uv[0], v=uv[1], slot=slot)
+    if n_rec:
+        out["rec"] = rec_out
+    return out
+
+
+bvh_closest.launches = 0
+bvh_closest.events = None
+
+
 # --- the intersector -------------------------------------------------------
 
 
+def rays_from(origins, dirs, alive=None):
+    """(R, 3) origins and directions -> (6, R) plane-form rays; rays
+    where `alive` is False become dead sentinels (origin 1e35, direction
+    1), which every kernel skips."""
+    if alive is not None:
+        a = alive[:, None]
+        origins = torch.where(a, origins, torch.full_like(origins,
+                                                          DEAD_ORIGIN))
+        dirs = torch.where(a, dirs, torch.ones_like(dirs))
+    return torch.cat([origins.t(), dirs.t()]).contiguous()
+
+
+def hit_dict(res, perm):
+    """The composable wavefront's hit dict from a closest-hit kernel's
+    outputs: slot = where(hit, slot, 0), tri = perm[slot]
+    (pallas_bvh.py:691-694); records come back (R, n_rec)."""
+    t = res["t"]
+    hit = t < BIG_T
+    slot = torch.where(hit, res["slot"], torch.zeros_like(res["slot"]))
+    out = dict(t=t, u=res["u"], v=res["v"], hit=hit, slot=slot,
+               tri=torch.where(hit, perm[slot.long()],
+                               torch.zeros_like(slot)))
+    if "rec" in res:
+        out["rec"] = res["rec"].t()
+    return out
+
+
 class BVHIntersector:
-    """The packed two-level BVH on one device, driving the fused kernels
-    (the fused-path subset of pallas_bvh.BVHIntersector: `query` and
-    `shadow` wait for the port of pallas_bvh_closest)."""
+    """The packed two-level BVH on one device (pallas_bvh.BVHIntersector):
+    the fused kernels (`spawn`, `shadow_shade`) and the generic closest
+    hit (`query`, `closest`, `shadow`) of the composable wavefront.  The
+    compact "mat" record format is not ported."""
 
     name = "bvh"
 
     def __init__(self, scene_buffers, triangles_per_leaf: int = 128,
                  group: int = 8, seg: int = 4,
-                 ray_block: int = DEFAULT_RAY_BLOCK, device=None):
+                 ray_block: int = DEFAULT_RAY_BLOCK,
+                 exact_order: bool | None = None, stream: bool = False,
+                 device=None):
         bvh = build_bvh2(np.asarray(scene_buffers.tri_verts),
                          triangles_per_leaf=triangles_per_leaf, group=group,
                          seg=seg)
         self._init(bvh.perm, bvh.v0, bvh.e1, bvh.e2, bvh.seg_aabb,
                    bvh.sc_aabb, bvh.orders, group, ray_block, device)
+        self.exact_order = exact_order
+        self.stream = stream
 
     @classmethod
     def from_bvh_arrays(cls, perm, v0, e1, e2, leaf_aabb, seg_aabb, sc_aabb,
@@ -561,6 +577,8 @@ class BVHIntersector:
         self.world_lo = tuple(float(x) for x in lo)
         self.world_inv_span = tuple(float(x) for x in inv)
         self.shade_planes = None
+        self.exact_order = None
+        self.stream = False
 
     def set_shade_records(self, records, fmt: str = "full"):
         """Install packed per-slot shading records (S, 6|7) — columns
@@ -578,6 +596,12 @@ class BVHIntersector:
 
     @property
     def supports_fused_spawn(self) -> bool:
+        return self.shade_planes is not None
+
+    @property
+    def supports_fused_shade(self) -> bool:
+        """`query(emit_shade=True)` extracts the winning records in the
+        kernel (trace_radiance's fused_shade path)."""
         return self.shade_planes is not None
 
     @property
@@ -603,3 +627,34 @@ class BVHIntersector:
         return bvh_shadow_shade(shadow_rays, normal, color, view,
                                 light_color, self.packed,
                                 ray_block=self.ray_block)
+
+    def _closest(self, rays, rec=None, t_limit=None, shadow=False):
+        return bvh_closest(rays, self.packed, rec, t_limit=t_limit,
+                           shadow=shadow, exact_order=self.exact_order,
+                           stream=self.stream,
+                           ray_block=self.ray_block)
+
+    def query(self, scene, origins, dirs, alive=None, t_limit=None,
+              emit_shade=False):
+        """Generic closest hit of (R, 3) rays; dead rays (alive False)
+        miss.  With emit_shade=True (after set_shade_records) the hit
+        dict also carries the winning triangle's records as "rec"
+        (R, n_rec), extracted in the kernel."""
+        assert not emit_shade or self.shade_planes is not None, \
+            "emit_shade requires set_shade_records()"
+        res = self._closest(rays_from(origins, dirs, alive),
+                            self.shade_planes if emit_shade else None,
+                            t_limit)
+        return hit_dict(res, self.perm)
+
+    def closest(self, scene, origins, dirs, alive=None):
+        return self.query(scene, origins, dirs, alive=alive)
+
+    def shadow(self, scene, origins, dirs, alive=None, t_min=SHADOW_T_MIN,
+               t_max=SHADOW_T_MAX):
+        """Windowed-closest occlusion (mod.rs:224-230): blocked iff the
+        closest hit lands strictly inside (t_min, t_max).  Culling past
+        t_max cannot change the outcome."""
+        t = self._closest(rays_from(origins, dirs, alive), t_limit=t_max,
+                          shadow=True)["t"]
+        return (t < BIG_T) & (t > t_min) & (t < t_max)

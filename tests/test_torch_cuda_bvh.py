@@ -269,3 +269,153 @@ def test_cpu_call_leaves_launch_counts_alone():
     assert (cuda_bvh.bvh_spawn.launches,
             cuda_bvh.bvh_shadow_shade.launches) == before
     assert isinstance(before[0], int) and isinstance(before[1], int)
+
+
+# --- the generic closest hit (bvh_closest <- pallas_bvh_closest) ----------
+
+from raytracer_tpu.core.intersect import closest_hit as jax_closest  # noqa: E402
+from raytracer_tpu.ops.bvh import build_bvh2 as jax_build_bvh2  # noqa: E402
+from raytracer_tpu.ops.pallas_bvh import pallas_bvh_closest  # noqa: E402
+from raytracer_tpu.ops.pallas_intersect import (  # noqa: E402
+    DEAD_ORIGIN, xla_cluster_closest)
+from tests.test_torch_intersect import (T_ATOL, _t,  # noqa: E402
+                                        assert_hits_match, random_rays,
+                                        random_scene)
+
+
+def _closest_setup(n_tris=3000, seed=5):
+    tris = random_scene(n_tris, seed=seed)
+    b = jax_build_bvh2(tris, triangles_per_leaf=128, group=8)
+    port = BVHIntersector.from_bvh_arrays(
+        b.perm, b.v0, b.e1, b.e2, b.leaf_aabb, b.seg_aabb, b.sc_aabb,
+        b.orders, group=8, device="cpu")
+    args = tuple(jnp.asarray(a) for a in (b.v0, b.e1, b.e2, b.seg_aabb,
+                                          b.sc_aabb, b.orders))
+    return tris, b, port, args
+
+
+def _pallas_closest(o, d, args, **kw):
+    out = pallas_bvh_closest(jnp.asarray(o), jnp.asarray(d), *args,
+                             interpret=True, **kw)
+    return np.asarray(out) if kw.get("shadow") else [np.asarray(x)
+                                                     for x in out]
+
+
+@pytest.fixture(scope="module")
+def closest_case():
+    return _closest_setup()
+
+
+def test_bvh_closest_plain_matches_pallas_and_xla(closest_case):
+    """Closest mode with 6 record planes: t/u/v/slot against the Pallas
+    kernel in interpret mode, the records against records[slot], and
+    the triangle against the XLA fallback and brute force."""
+    tris, b, port, args = closest_case
+    o, d = random_rays(1024, seed=6)
+    S = b.num_leaves * b.leaf_size
+    records = np.random.default_rng(23).random((S, 6)).astype(np.float32)
+    planes = tuple(jnp.asarray(records[:, k].reshape(b.num_leaves,
+                                                     b.leaf_size))
+                   for k in range(6))
+    tp, up, vp, ip, *recs = _pallas_closest(o, d, args, rec_planes=planes)
+    got = cuda_bvh.bvh_closest(cuda_bvh.rays_from(_t(o), _t(d)), port.packed,
+                               _t(records.T.copy()))
+    got = {k: v.numpy() for k, v in got.items()}
+    hit = tp < BIG_T
+    assert_hits_match(got["t"], b.perm[np.maximum(got["slot"], 0)], tp, hit,
+                      b.perm[ip], o, d, tris)
+    same = hit & (got["slot"] == ip)
+    np.testing.assert_allclose(got["u"][same], up[same], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["v"][same], vp[same], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got["rec"][:, same],
+                                  np.stack(recs)[:, same])
+    np.testing.assert_array_equal(got["rec"][:, hit],
+                                  records[got["slot"][hit]].T)
+    assert (got["rec"][:, ~hit] == 0).all() and (got["slot"][~hit] == -1).all()
+    tx, _, _, ix = (np.asarray(x) for x in xla_cluster_closest(
+        jnp.asarray(o), jnp.asarray(d), *args[:3],
+        jnp.asarray(b.leaf_aabb[:, 0:3]), jnp.asarray(b.leaf_aabb[:, 3:6])))
+    assert_hits_match(got["t"], b.perm[np.maximum(got["slot"], 0)], tx,
+                      tx < BIG_T, b.perm[ix], o, d, tris)
+
+
+def test_bvh_closest_t_limit_and_shadow_mode(closest_case):
+    """Below a t limit the hit is exact; shadow mode returns t only, and
+    the intersector's shadow is the (0.01, 1.0) window of the closest
+    hit, as the Pallas kernel's shadow mode gives it."""
+    tris, b, port, args = closest_case
+    o, d = random_rays(1024, seed=10)
+    brute = jax_closest(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tris))
+    bt = np.asarray(brute["t"])
+    limit = float(np.median(bt[bt < BIG_T]))
+    rays = cuda_bvh.rays_from(_t(o), _t(d))
+    got = cuda_bvh.bvh_closest(rays, port.packed, t_limit=limit)["t"].numpy()
+    tl = _pallas_closest(o, d, args, t_limit=limit)[0]
+    below = bt <= limit * 0.999
+    np.testing.assert_allclose(got[below], tl[below], rtol=1e-5, atol=T_ATOL)
+    assert below.any()
+
+    sh = cuda_bvh.bvh_closest(rays, port.packed, t_limit=1.0, shadow=True)
+    assert set(sh) == {"t"}
+    ts = _pallas_closest(o, d, args, t_limit=1.0, shadow=True)
+    window = (ts < BIG_T) & (ts > 0.01) & (ts < 1.0)
+    np.testing.assert_array_equal(port.shadow(None, _t(o), _t(d)).numpy(),
+                                  window)
+    assert window.any()
+
+
+def test_bvh_query_dead_rays_and_variants(closest_case):
+    """The intersector's query: alive=False and sentinel-origin rays
+    miss with slot 0 and tri 0; live rays match brute force through the
+    slot permutation; exact_order and stream give identical results."""
+    tris, b, port, args = closest_case
+    o, d = random_rays(1024, seed=14)
+    alive = np.ones(1024, bool)
+    alive[100:200] = False
+    o[700:] = DEAD_ORIGIN
+    d[700:] = 1.0
+    q = port.query(None, _t(o), _t(d), alive=_t(alive))
+    live = alive.copy()
+    live[700:] = False
+    assert not q["hit"].numpy()[~live].any()
+    assert (q["slot"].numpy()[~live] == 0).all()
+    assert (q["tri"].numpy()[~live] == 0).all()
+    brute = jax_closest(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tris))
+    assert_hits_match(q["t"].numpy(), q["tri"].numpy(), brute["t"],
+                      brute["hit"], brute["tri"], o, d, tris, mask=live)
+    rays = cuda_bvh.rays_from(_t(o), _t(d))
+    base = cuda_bvh.bvh_closest(rays, port.packed)
+    for kw in (dict(exact_order=True), dict(exact_order=False),
+               dict(stream=True)):
+        res = cuda_bvh.bvh_closest(rays, port.packed, **kw)
+        for k in base:
+            np.testing.assert_array_equal(res[k].numpy(), base[k].numpy())
+
+
+def test_bvh_closest_axis_parallel_rays():
+    """Zero direction components with origins exactly on box planes: the
+    BVH walk's guarded inverse keeps every slab product finite, so the
+    Pallas kernel finds what the dense plain version finds."""
+    tris = np.array([
+        [[0, 0, 1], [1, 0, 1], [0, 1, 1]],
+        [[1, 0, 1], [1, 1, 1], [0, 1, 1]],
+    ], np.float32)
+    b = jax_build_bvh2(tris, triangles_per_leaf=128, group=8)
+    port = BVHIntersector.from_bvh_arrays(
+        b.perm, b.v0, b.e1, b.e2, b.leaf_aabb, b.seg_aabb, b.sc_aabb,
+        b.orders, group=8, device="cpu")
+    args = tuple(jnp.asarray(a) for a in (b.v0, b.e1, b.e2, b.seg_aabb,
+                                          b.sc_aabb, b.orders))
+    o = np.array([[0.25, 0.25, 0.0], [0.0, 0.25, 0.0], [0.0, 0.0, 0.0],
+                  [1.0, 1.0, 0.0], [2.0, 0.25, 0.0], [0.25, 0.25, 1.0]],
+                 np.float32)
+    d = np.array([[0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1],
+                  [1, 0, 0]], np.float32)
+    n = len(o)
+    o = np.concatenate([o, np.full((1024 - n, 3), DEAD_ORIGIN, np.float32)])
+    d = np.concatenate([d, np.ones((1024 - n, 3), np.float32)])
+    want = _pallas_closest(o, d, args)[0]
+    got = port.query(None, _t(o), _t(d))["t"].numpy()
+    np.testing.assert_array_equal(got < BIG_T, want < BIG_T)
+    np.testing.assert_allclose(got[:4], 1.0, rtol=1e-6)
+    assert got[4] == BIG_T and not np.isnan(got).any()

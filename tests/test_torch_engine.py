@@ -122,15 +122,83 @@ def test_default_device_without_a_card_raises(data_dir, monkeypatch):
         RayTracer(scene, W, H)
     with pytest.raises(ValueError):
         RayTracer(scene, W, H, device="cpu", sort_key_mode="octant")
-    with pytest.raises(ValueError):
-        RayTracer(scene, W, H, device="cpu", accel="cluster")
+    with pytest.raises(ValueError, match="octree"):
+        RayTracer(scene, W, H, device="cpu", accel="octree")
 
 
 def test_import_loads_neither_jax_nor_reference_package():
-    code = ("import sys, raytracer_tpu_torch; "
+    """Every module of the port, imported in a fresh process, loads
+    neither JAX nor the reference package."""
+    code = ("import importlib, pkgutil, sys, raytracer_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'raytracer_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'raytracer_tpu' or "
-            "m.startswith('raytracer_tpu.')]; print(bad)")
+            "m.startswith('raytracer_tpu.')]; print(' '.join(names)); "
+            "print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]", out.stdout
+    names, bad = out.stdout.strip().splitlines()
+    assert bad == "[]", out.stdout
+    names = set(names.split())
+    for mod in ("native", "core.intersect", "core.intersectors",
+                "core.sampler", "core.shade", "core.wavefront", "core.engine",
+                "ops.cluster", "ops.cuda_build", "ops.cuda_bvh",
+                "ops.cuda_cluster"):
+        assert f"raytracer_tpu_torch.{mod}" in names, mod
+
+
+@pytest.mark.parametrize("accel", ["cluster", "brute"])
+def test_render_matches_reference_engine_unfused(data_dir, accel):
+    """accel="cluster"/"brute": the composable wavefront, one sample per
+    wavefront, in both engines (engine.py:135-155, :326-338)."""
+    want = jax_create(str(data_dir / "4boxes.dae"), width=W, height=H,
+                      seed=3, accel=accel).render(spp=2)
+    rt = _port(data_dir, accel=accel)
+    assert not rt.fused and rt._choose_pool(2) == 1
+    got = rt.render(spp=2)
+    assert np.isfinite(got).all() and got.max() > 0
+    _assert_flip_bound(got, want)
+    assert rt.film.num_samples.eq(2.0).all()
+
+
+@pytest.mark.parametrize("accel", ["cluster", "brute"])
+def test_trace_frame_additive_matches_reference_unfused(data_dir, accel):
+    jrt = jax_create(str(data_dir / "4boxes.dae"), width=W, height=H,
+                     seed=4, rows_per_frame=10, accel=accel)
+    rt = _port(data_dir, seed=4, rows_per_frame=10, accel=accel)
+    for _ in range(2):
+        assert rt.trace_frame_additive() == jrt.trace_frame_additive()
+    want = np.asarray(jrt.film.get_pixels()).reshape(H, W, 3)
+    got = rt.film.get_pixels().numpy().reshape(H, W, 3)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    rows = ~np.isnan(want[:, 0, 0])
+    _assert_flip_bound(got[rows], want[rows])
+
+
+def test_brute_and_cluster_render_identically(data_dir):
+    """tests/test_engine.py:54-63 on the port: the same draws through the
+    oracle and the cluster grid."""
+    a = _port(data_dir, accel="brute").render(spp=1)
+    b = _port(data_dir, accel="cluster").render(spp=1)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_pool_budget_and_intersector_argument(data_dir):
+    """Only the fused path pools samples: off it the auto budget is 1
+    and an explicit budget above 1 raises.  A ready intersector (BVH,
+    no records) is taken as given and gets the records installed."""
+    from raytracer_tpu_torch import make_intersector
+    rt = _port(data_dir, accel="cluster")
+    assert rt._choose_pool(16) == 1
+    rt = _port(data_dir, accel="cluster", spp_pool=4)
+    with pytest.raises(ValueError, match="fused"):
+        rt.render(spp=4)
+    scene = ColladaLoader.from_file(data_dir / "4boxes.dae", width=W,
+                                    height=H, verbose=False)
+    isect = make_intersector("bvh", scene.to_buffers(), device="cpu")
+    assert not isect.supports_fused_spawn
+    rt = RayTracer(scene, W, H, intersector=isect, device="cpu")
+    assert rt.intersector is isect and rt.fused
+    assert rt._choose_pool(16) == 8
