@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # the whole check (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only, small
     python3 chip_smoke.py --profile  # + kernel profiles of two renders
+    python3 chip_smoke.py --parent OLD/cuda_bvh.cu
+                                     # + the BVH kernels of another
+                                     #   cuda_bvh.cu, timed in turns
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -21,7 +24,13 @@ Phases (any failure raises and exits non-zero):
    1024x1024; bvh_closest also on level-0 slices with 6 and 7 record
    planes and with a t limit, both on a slice of axis-parallel rays.
    Each kernel and plain version is timed at each shape, and the kernels
-   count their ray-triangle tests for the bound.  Then whole 64x64
+   count their ray-triangle tests for the bound.  The fused kernels'
+   bound counts the tests their inputs need: the rows that the per-ray
+   walk of bvh_closest runs on the same rays at the same t limit (BIG_T
+   for spawn, 1.0 in shadow mode for shadow-shade), so a kernel that
+   tests more rows does not raise its own bound; the rows the fused
+   kernels ran themselves are reported beside it as the tests run.
+   Then whole 64x64
    renders on the card against the plain path on the CPU, both fed the
    same numpy-made draws: the fused path (spp 2) and accel="cluster"
    (spp 1);
@@ -38,8 +47,12 @@ Phases (any failure raises and exits non-zero):
       __graft_entry__.entry() runs), thai2 1024x1024, 1 sample,
       recursions 2: 6 bvh_closest launches;
    each timed, with each kernel's launch count and CUDA-event times;
-5. one JSON line describing each ported kernel;
-6. the last line: {"ok": true, "device": {...}}.
+5. with --parent: the fused kernels at each level, bvh_closest and
+   cluster_closest at the level-1 closest batch, and the fused
+   render(16), each with the parent's cuda_bvh library and this tree's
+   in turns (parent, new, new, parent) on the same inputs;
+6. one JSON line describing each ported kernel;
+7. the last line: {"ok": true, "device": {...}}.
 
 Tolerance of the kernel checks: the kernels are built with --fmad=false,
 so they round like the plain versions op for op, and a live ray may
@@ -166,6 +179,61 @@ def read_counts():
     return counts, times
 
 
+TURNS = ("parent", "new", "new", "parent")
+
+
+def start_parent_build(src):
+    """nvcc of another cuda_bvh.cu (the same C interface) into its own
+    library, started now beside the main build."""
+    from raytracer_tpu_torch.ops import cuda_build
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(cuda_build.BUILD_DIR, "libcuda_bvh_parent.so")
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+           "-o", out, os.path.abspath(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+class Libs:
+    """This tree's cuda_bvh library and a parent's, swapped in turns
+    under the same wrappers."""
+
+    def __init__(self, build):
+        import ctypes
+        from raytracer_tpu_torch.ops import cuda_bvh
+        proc, path = build
+        self.report, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"parent nvcc failed:\n{self.report}")
+        self.new = cuda_bvh._load()
+        self.parent = ctypes.CDLL(path)
+        cuda_bvh._setup(self.parent)
+
+    def use(self, which):
+        from raytracer_tpu_torch.ops import cuda_build
+        cuda_build._libs["cuda_bvh"] = getattr(self, which)
+
+    def turns(self, fn):
+        """fn() under each library in TURNS; [(which, result)]."""
+        out = []
+        for which in TURNS:
+            self.use(which)
+            out.append((which, fn()))
+        self.use("new")
+        return out
+
+
+def ptxas_lines(name, report):
+    """The per-kernel lines of a -Xptxas -v report: entry, registers,
+    shared memory, spills."""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            log(f"  {name}: " + line.split("'")[1][:60])
+        elif ("registers" in line or "spill" in line
+              or "error" in line.lower()):
+            log(f"  {name}:   " + line.strip())
+
+
 def tied(rays, t, krec, bvh, planes):
     """For rays whose kernel record differs from the plain one at the
     same t: True where the kernel's record is that of a triangle that the
@@ -236,9 +304,10 @@ def check_shade(what, sk, sp, shadow_rays):
     return err
 
 
-def phase_kernels(rt, quick, rec):
+def phase_kernels(rt, quick, rec, libs=None):
     """Kernel vs plain at the main path's shapes; returns the numbers the
-    kernels line reports."""
+    kernels line reports.  With `libs`, each fused kernel is also timed
+    with the parent's library and this tree's in turns."""
     import numpy as np
     import torch
     from raytracer_tpu_torch.models.camera import generate_rays
@@ -293,29 +362,54 @@ def phase_kernels(rt, quick, rec):
         res["shadow_shade"]["err"] = max(res["shadow_shade"]["err"],
                                          check_shade(what, sk, sp, sh_args[0]))
         del sk, sp
-        k_ms = cuda_ms(lambda: cuda_bvh.bvh_spawn(
-            rays, g, lp1, bvh, planes, children=b, **kw), reps)
-        ks_ms = cuda_ms(lambda: cuda_bvh.bvh_shadow_shade(*sh_args, bvh),
-                        reps)
+        # tests needed: the per-ray walk (bvh_closest) on the same rays
+        # at the same t limit, the yardstick of the bound
+        need = torch.zeros((R,), dtype=torch.int32, device=dev)
+        cuda_bvh.bvh_closest(rays, bvh, t_limit=BIG_T, rows_out=need)
+        need_sh = torch.zeros_like(rows_sh)
+        cuda_bvh.bvh_closest(sh_args[0], bvh, t_limit=1.0, shadow=True,
+                             rows_out=need_sh)
+
+        def spawn_fn():
+            return cuda_bvh.bvh_spawn(rays, g, lp1, bvh, planes, children=b,
+                                      **kw)
+
+        def shade_fn():
+            return cuda_bvh.bvh_shadow_shade(*sh_args, bvh)
+
+        k_ms = cuda_ms(spawn_fn, reps)
+        ks_ms = cuda_ms(shade_fn, reps)
+        turns = {}
+        if libs is not None:
+            turns = {"spawn": libs.turns(lambda: cuda_ms(spawn_fn, reps)),
+                     "shadow_shade": libs.turns(lambda: cuda_ms(shade_fn,
+                                                                reps))}
         sp_bytes = (nbytes(rays, g, lp1, planes) + bvh_bytes
                     + nbytes(*got.values()))
         ss_bytes = nbytes(*sh_args) + bvh_bytes + 3 * sh_args[0].shape[1] * 4
-        for name, ms, pms, by, r in (("spawn", k_ms, p_ms, sp_bytes, rows),
-                                     ("shadow_shade", ks_ms, ps_ms, ss_bytes,
-                                      rows_sh)):
-            tests = int(r.sum()) * bvh.C
+        for name, ms, pms, by, r, nd in (
+                ("spawn", k_ms, p_ms, sp_bytes, rows, need),
+                ("shadow_shade", ks_ms, ps_ms, ss_bytes, rows_sh, need_sh)):
+            n = r.numel()
+            tests = int(nd.sum()) * bvh.C     # rows of the per-ray walk
+            run = int(r.sum())                 # lanes the kernel tested
             ops = tests * cuda_bvh.MT_OPS
             t_bytes = by / H100_BYTES_PER_S * 1e3
             t_ops = ops / H100_F32_OPS * 1e3
+            bound = max(t_bytes, t_ops)
             res[name]["levels"].append(dict(
-                level=level, rays=int(r.numel()), ms=ms, plain_ms=pms,
-                bound_ms=max(t_bytes, t_ops),
+                level=level, rays=n, ms=ms, plain_ms=pms, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=by, mt_ops=ops, tests=tests))
-            log(f"{name} level {level} ({r.numel()} rays): kernel {ms:.4f} "
-                f"ms, plain {pms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms "
-                f"({by} B, {ops} MT ops, {tests / R:.1f} ray-triangle "
-                f"tests/ray)")
+                bytes=by, mt_ops=ops, tests=tests, tests_run=run,
+                turns_ms=turns.get(name)))
+            log(f"{name} level {level} ({n} rays): kernel {ms:.4f} ms "
+                f"({100 * bound / ms:.1f} % of bound), plain {pms:.1f} ms, "
+                f"bound {bound:.6f} ms ({by} B, {ops} MT ops); tests/ray "
+                f"needed {tests / n:.2f}, run {run / n:.2f} (x"
+                f"{run / max(tests, 1):.3f})")
+            if name in turns:
+                log(f"  {name} level {level} in turns: " + ", ".join(
+                    f"{w} {t:.4f} ms" for w, t in turns[name]))
         # slices for the other children and light counts
         if level == 0:
             slices.append(("level 0", rays[:, R // 2 - n_slice // 2:
@@ -326,7 +420,7 @@ def phase_kernels(rt, quick, rec):
         if b:
             _, p = torch.sort(got["keys"], stable=True)
             rays = got["children"].index_select(1, p)
-        del got, g, sh_args
+        del got, g, sh_args, need, need_sh
 
     rng = np.random.default_rng(1)
     lights = {1: (lp1, lc1),
@@ -422,6 +516,24 @@ def phase_main(rt, rec):
                        peak_bytes=peak, launches=launches,
                        per_launch=per_launch)
     return launches, per_launch
+
+
+def phase_render_turns(rt, libs, rec):
+    """The fused render(16) with the parent's cuda_bvh library and this
+    tree's in turns, each after a cleared film."""
+    import torch
+
+    def render():
+        rt.film.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.render(16)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    turns = libs.turns(render)
+    log("render(16) in turns: " + ", ".join(f"{w} {t:.4f} s"
+                                            for w, t in turns))
+    rec["render_turns_s"] = turns
 
 
 class Recorder:
@@ -542,9 +654,11 @@ def axis_parallel_rays(grid, n, seed):
     return torch.cat([o.t(), d.t()]).contiguous()
 
 
-def phase_closest_kernels(rt, quick, rec):
+def phase_closest_kernels(rt, quick, rec, libs=None):
     """bvh_closest and cluster_closest against their plain versions at
-    the level shapes of one 1-spp trace_radiance wavefront (tpl 70)."""
+    the level shapes of one 1-spp trace_radiance wavefront (tpl 70).
+    With `libs`, both are also timed at the level-1 closest batch with
+    the parent's cuda_bvh library and this tree's in turns."""
     import torch
     import raytracer_tpu_torch as rtx
     from raytracer_tpu_torch.core.shade import build_slot_records
@@ -609,6 +723,12 @@ def phase_closest_kernels(rt, quick, rec):
             del got, want
         # the kernels line reports the largest shape: level 1 closest
         res[name].update(res[name]["levels"][2])
+        if libs is not None:
+            rays = batches[2][1]
+            res[name]["turns_ms"] = libs.turns(
+                lambda: cuda_ms(lambda: kern(rays, BIG_T, False), reps))
+            log(f"{name} {batches[2][0]} in turns: " + ", ".join(
+                f"{w} {t:.4f} ms" for w, t in res[name]["turns_ms"]))
 
     # slices: records, a t limit, axis-parallel rays
     n_slice = 4096 if quick else 65536
@@ -792,6 +912,9 @@ def main(argv):
                     help="also profile one render(8) by kernel")
     ap.add_argument("--json", metavar="PATH",
                     help="write everything measured to PATH")
+    ap.add_argument("--parent", metavar="CUDA_BVH_CU",
+                    help="also time the BVH kernels built from this source "
+                         "(same C interface), in turns with this tree's")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "raytracer_tpu_torch")):
@@ -814,22 +937,23 @@ def main(argv):
     rec["card"] = card
 
     t0 = time.perf_counter()
+    parent = start_parent_build(args.parent) if args.parent else None
     reports = cuda_build.build_all(verbose=True)
+    libs = Libs(parent) if parent else None
     build_s = time.perf_counter() - t0
     log(f"built kernels in {build_s:.2f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "error" in line.lower()):
-                log(f"  {name}: " + line.strip())
+        ptxas_lines(name, report)
+    if libs:
+        ptxas_lines("parent cuda_bvh", libs.report)
     rec["build_s"] = build_s
 
     size = 256 if args.quick else 1024
     rt = rtx.create_raytracer_from_file(
         os.path.join(REPO, "data", "thai2.dae"), width=size, height=size,
         triangles_per_leaf=256)
-    checks = phase_kernels(rt, args.quick, rec)
-    closest = phase_closest_kernels(rt, args.quick, rec)
+    checks = phase_kernels(rt, args.quick, rec, libs)
+    closest = phase_closest_kernels(rt, args.quick, rec, libs)
     if args.quick:
         return 0
     phase_render_compare(rec)
@@ -837,6 +961,8 @@ def main(argv):
     launches, per_launch = phase_main(rt, rec)
     n_cluster, cluster_times, rt_cluster = phase_cluster_main(rec)
     n_bvh, bvh_times = phase_bvh_trace(rt, rec)
+    if libs:
+        phase_render_turns(rt, libs, rec)
     if args.profile:
         phase_profile("fused", rt, 8, rec)
         phase_profile("cluster", rt_cluster, 2, rec)
@@ -856,6 +982,10 @@ def main(argv):
             "shape": f"main-path level 1, {c['rays']} rays",
             "levels_ms": [lv["ms"] for lv in c["levels"]],
             "levels_bound_ms": [lv["bound_ms"] for lv in c["levels"]],
+            "tests_needed_per_ray": [lv["tests"] / lv["rays"]
+                                     for lv in c["levels"]],
+            "tests_run_per_ray": [lv["tests_run"] / lv["rays"]
+                                  for lv in c["levels"]],
             "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
     for name, source, replaces, n, times in (
             ("bvh_closest", "raytracer_tpu_torch/csrc/cuda_bvh.cu",

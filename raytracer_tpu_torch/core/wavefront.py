@@ -210,7 +210,10 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
     enter one global sort; per-sample radiance equals pool=1 with that
     sample's stream bit for bit (per-ray kernel results do not depend on
     their neighbours, draws stay canonical per sample, and the unsort
-    restores canonical order before the per-sample fold).
+    restores canonical order before the per-sample fold).  On the card
+    the fused kernels walk per block of rays, so which of two triangles
+    hit at exactly the same t wins may depend on the neighbours; t does
+    not.
 
     Sorts are stable (`torch.sort(stable=True)`) followed by one gather
     of the payload columns.  `sort_payload` is kept for parity with the

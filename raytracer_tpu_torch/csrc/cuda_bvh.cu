@@ -6,10 +6,10 @@
 //   rtx_bvh_shadow_shade  <- pallas_bvh_shadow_shade (pallas_bvh.py:1068)
 //   rtx_bvh_closest       <- pallas_bvh_closest      (pallas_bvh.py:411)
 //
-// All walk the packed two-level BVH of ops/bvh.py (superclusters of G
-// rows, rows of C triangle lanes, S segment boxes per row) for the
-// closest hit.  The first two are the fused wavefront levels and run
-// their epilogue in the same thread:
+// All find the closest hit over the packed two-level BVH of ops/bvh.py
+// (superclusters of G rows, rows of C triangle lanes, S segment boxes
+// per row).  The first two are the fused wavefront levels and run their
+// epilogue in the same thread:
 //   spawn:        the winning triangle's shading record (+ u/v for
 //                 textured scenes), one shadow ray per light, one
 //                 hemisphere bounce ray per child and its dir6/dir9 sort
@@ -25,36 +25,65 @@
 // TPU).  The TPU kernel's exact_order and stream variants pick the walk
 // order and the staging only; this kernel has one form for all of them.
 //
-// Design: one thread per ray.  Each thread walks the superclusters in
-// one of six precomputed centroid orders, picked from its own dominant
-// direction axis and sign (the TPU kernel picks it per 128-ray block,
-// pallas_bvh.py:149-155), gates each supercluster on its slab entry
-// against min(best t, limit), then each row on the min of its S segment
-// entries, and runs Moller-Trumbore over the C lanes of every surviving
-// row.  Walk order changes only the speed: the closest t is exact in any
-// order, ties keep the first lane of a row and a row wins only on a
-// strict '<' (pallas_bvh.py:248-253).
+// What bounds them on an H100: the Moller-Trumbore arithmetic, 54 f32
+// operations per ray-triangle test and hundreds of tests per bounce ray on
+// thai2, against the card's f32 instruction rate.  The 67 TFLOP/s
+// data-sheet peak counts an FMA as two flops; this build contracts nothing
+// (see below), so each operation is one instruction and the ceiling is
+// about 33.5 T operations/s (128 f32 lanes x 132 SMs x 1.98 GHz).  The ray
+// I/O (~100-300 bytes a ray) is far below the 3.35 TB/s line, and the
+// triangle planes (9 x NL*C floats, 0.74 MB for thai2 at 256 lanes) stay
+// in L2.  A kernel nears the ceiling only if nearly every instruction slot
+// goes to those 54 operations: no divergence inside a test, no reloads, no
+// lanes idled by dead rays.
 //
-// What bounds it on an H100: the Moller-Trumbore arithmetic (54 f32
-// operations per ray-triangle test, hundreds of tests per bounce ray on
-// thai2) against the card's f32 issue rate.  The 67 TFLOP/s data-sheet
-// peak counts an FMA as two flops; this build contracts nothing (see
-// below), so each operation is one instruction and the ceiling is about
-// 33.5 T operations/s (128 f32 lanes x 132 SMs x 1.98 GHz); the ray I/O
-// (~100-300 bytes a ray) is far below the 3.35 TB/s line.  The triangle
-// planes (9 x NL*C floats, 0.74 MB for thai2 at 256 lanes) stay in L2
-// and are read with __ldg.  This first version spends nothing on the
-// bound beyond the two-level culling: a warp's threads diverge between
-// rows, and every lane of a row is reloaded per thread.  Warp-cooperative
-// rows, shared-memory staging of triangle rows and cp.async are later
-// work.
+// The fused kernels walk per block (walk_window, block_walk).  A block of
+// B threads (128 by default) takes a window of 4 x B consecutive rays,
+// packs their live rays to the front in order (a stable partition: dead
+// shadow rays, scattered among live ones in the light-major layout, idle
+// no lane) and walks them in batches of B, one ray a thread; a window with
+// no live ray walks nothing (levels 1-2 sort dead rays last).  The rays
+// are sorted (tile swizzle at level 0, dir6 key after it), so neighbours
+// need mostly the same rows.  A batch walks the superclusters in one
+// order, picked from its summed live directions as the TPU kernel picks it
+// (pallas_bvh.py:149-155).  Per supercluster the block stages its box and
+// its G*S segment boxes in shared memory; each live thread slab-tests them
+// against min(its best t, limit), keeps its segment entries in shared
+// memory, and the block's OR of the rows the threads would enter (a row on
+// the min of its S segments, the per-ray walk's gate) is the row list.
+// The rows of the list are staged chunk by chunk (128 lanes, 9 planes,
+// 4,608 B) into a ring of three shared-memory buffers with cp.async, two
+// chunks in flight while one is tested, one barrier per chunk; any C that
+// is a multiple of 128 runs.  Each warp then tests only the segments of
+// the chunk (C/S lanes each, 64 on the main path) that one of its rays
+// still enters before its best t so far, and all 32 threads test those
+// lanes in the same order: the reads are shared-memory broadcasts (float4,
+// four lanes a load), the warp never diverges inside a test, and offsets
+// are 32-bit.  So a warp pays for the union of its rays' segments, not for
+// their divergence, and no thread reloads a lane from L2.  Testing lanes a
+// ray did not need never changes its closest t, so every ray gets the
+// exact closest hit (up to slab rounding at a box face, as in any culled
+// walk): the first lane of a row keeps a tie (strict '<' as lanes run in
+// order) and a row wins only on a strict '<' (pallas_bvh.py:248-253).
+// Walk order changes only the speed, and which triangle wins an exact-t
+// tie across rows.  Each kernel counts, per ray, the tests its warp ran
+// (tests_out).
+//
+// rtx_bvh_closest keeps the per-ray walk, one thread per ray (traverse),
+// until its own redesign: each thread walks in its own dominant-direction
+// order and gates each supercluster and row for itself; a warp's threads
+// diverge between rows, and every lane of a row is reloaded per thread
+// with __ldg.  Its per-ray row counter is the yardstick of the fused
+// kernels' bound: the tests their inputs need are the rows this walk runs
+// on the same rays, times C.
 //
 // Built with --fmad=false (no contraction of a*b+c), so each operation
 // rounds on its own, as in the plain PyTorch versions in
 // ops/cuda_bvh.py: the two agree bit for bit on nearly every ray.
 //
 // Every entry point launches on the caller's stream, allocates nothing
-// and returns cudaGetLastError() (0 on success).
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a shape its kernel does not take.
 
 #include <cuda_runtime.h>
 
@@ -71,6 +100,14 @@ constexpr float kShadowTMin = 0.01f;          // mod.rs:227 window
 constexpr float kShadowTMax = 1.0f;
 constexpr int kDeadKey = 1 << 30;
 constexpr int kMaxRec = 8;
+
+// The block walk's shapes (ops/cuda_bvh.py block_walk_plan mirrors them).
+constexpr int kChunk = 128;                   // lanes staged at a time
+constexpr int kChunk4 = kChunk / 4;           // float4s per plane chunk
+constexpr int kChunkFloats = 9 * kChunk;      // one staged chunk
+constexpr int kMaxG = 32;                     // rows per supercluster mask
+constexpr int kMaxBlock = 256;                // threads (rays) per block
+constexpr int kBatches = 4;                   // batches per window of rays
 
 struct Bvh {
   const float* __restrict__ tri;   // (9, ns): v0 xyz, e1 xyz, e2 xyz planes
@@ -105,7 +142,7 @@ __device__ __forceinline__ float safe_inv(float x) {
 // its 128-ray block gate still tests the box when a block-mate enters it,
 // and its own test expects such rays to hit
 // (tests/test_pallas_bvh.py::test_bvh_axis_parallel_rays_zero_direction).
-// A per-ray walk has no block-mates, so it takes the parallel case
+// Both walks here gate each box per ray, so they take the parallel case
 // exactly.
 __device__ __forceinline__ void slab_axis(float lo, float hi, float o,
                                           float d, float inv, float& tmin,
@@ -119,16 +156,15 @@ __device__ __forceinline__ void slab_axis(float lo, float hi, float o,
   tmax = fminf(tmax, fmaxf(t1, t2));
 }
 
-// Slab entry distance of a box [min xyz, max xyz, pad, pad]; BIG_T when
-// the ray misses it or the box lies behind (pallas_bvh.py:166-175).
-// `parallel`: the ray has a component below 1e-30 and each axis takes
-// slab_axis; the walk decides it once per ray, so rays without such a
-// component (all of a render's) run the plain six-product test.
-__device__ __forceinline__ float slab_entry(const float* __restrict__ box,
+// Slab entry distance of a box lo = (min xyz, max x), hi = (max yz, pad,
+// pad); BIG_T when the ray misses it or the box lies behind
+// (pallas_bvh.py:166-175).  `parallel`: the ray has a component below
+// 1e-30 and each axis takes slab_axis; the walk decides it once per ray,
+// so rays without such a component (all of a render's) run the plain
+// six-product test.
+__device__ __forceinline__ float slab_entry(float4 lo, float4 hi,
                                             const Ray& r, float ix, float iy,
                                             float iz, bool parallel) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(box));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(box) + 1);
   float tmin, tmax;
   if (parallel) {
     tmin = -kBigT;
@@ -146,9 +182,63 @@ __device__ __forceinline__ float slab_entry(const float* __restrict__ box,
   return (tmax >= tmin && tmax > 0.0f) ? tmin : kBigT;
 }
 
-// Moller-Trumbore of one ray against the C lanes of packed row `row`
-// (pallas_bvh.py:224-253): inv_det multiplies, one sign test for
-// acceptance, strict '<' so the first lane keeps a tie.
+// The same, for a box [min xyz, max xyz, pad, pad] in global memory.
+__device__ __forceinline__ float slab_entry(const float* __restrict__ box,
+                                            const Ray& r, float ix, float iy,
+                                            float iz, bool parallel) {
+  return slab_entry(__ldg(reinterpret_cast<const float4*>(box)),
+                    __ldg(reinterpret_cast<const float4*>(box) + 1), r, ix,
+                    iy, iz, parallel);
+}
+
+// Walk order of the superclusters (one of the six precomputed centroid
+// orders) from a direction's dominant axis and sign
+// (pallas_bvh.py:149-155).
+__device__ __forceinline__ int order_index(float x, float y, float z) {
+  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+  int axis = ay > ax ? 1 : 0;
+  axis = az > fmaxf(ax, ay) ? 2 : axis;
+  const float sgn = axis == 0 ? x : (axis == 1 ? y : z);
+  return axis * 2 + (sgn < 0.0f);
+}
+
+// Moller-Trumbore of one ray against one triangle (pallas_bvh.py:224-253):
+// inv_det multiplies, one sign test for acceptance; the hit replaces the
+// best only on a strict '<'.  `kUV` / `kSlot`: also keep u, v / the slot.
+template <bool kUV, bool kSlot, typename H, typename S>
+__device__ __forceinline__ void mt_test(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        S s, const Ray& r, H& h) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool non_par = fabsf(det) >= kF32Eps;
+  const float inv_det = 1.0f / (non_par ? det : 1.0f);
+  const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+  const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const bool ok = non_par &&
+      fminf(fminf(uu, vv), fminf(1.0f - (uu + vv), tt)) >= 0.0f;
+  if (ok && tt < h.t) {
+    h.t = tt;
+    if (kUV) {
+      h.u = uu;
+      h.v = vv;
+    }
+    if (kSlot) h.slot = s;
+  }
+}
+
+// --- the per-ray walk (closest_kernel) -----------------------------------
+
+// One ray against the C lanes of packed row `row`, each lane loaded from
+// global memory; lanes in order, so the first lane keeps a tie.
 __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
                                        const Ray& r, Hit& h) {
   const float* __restrict__ T = b.tri;
@@ -156,33 +246,11 @@ __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
   const long long base = row * b.C;
   for (int j = 0; j < b.C; ++j) {
     const long long s = base + j;
-    const float v0x = __ldg(T + s), v0y = __ldg(T + ns + s),
-                v0z = __ldg(T + 2 * ns + s);
-    const float e1x = __ldg(T + 3 * ns + s), e1y = __ldg(T + 4 * ns + s),
-                e1z = __ldg(T + 5 * ns + s);
-    const float e2x = __ldg(T + 6 * ns + s), e2y = __ldg(T + 7 * ns + s),
-                e2z = __ldg(T + 8 * ns + s);
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const bool non_par = fabsf(det) >= kF32Eps;
-    const float inv_det = 1.0f / (non_par ? det : 1.0f);
-    const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-    const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
-    const float qx = tvy * e1z - tvz * e1y;
-    const float qy = tvz * e1x - tvx * e1z;
-    const float qz = tvx * e1y - tvy * e1x;
-    const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const bool ok = non_par &&
-        fminf(fminf(uu, vv), fminf(1.0f - (uu + vv), tt)) >= 0.0f;
-    if (ok && tt < h.t) {
-      h.t = tt;
-      h.u = uu;
-      h.v = vv;
-      h.slot = s;
-    }
+    mt_test<true, true>(__ldg(T + s), __ldg(T + ns + s),
+                        __ldg(T + 2 * ns + s), __ldg(T + 3 * ns + s),
+                        __ldg(T + 4 * ns + s), __ldg(T + 5 * ns + s),
+                        __ldg(T + 6 * ns + s), __ldg(T + 7 * ns + s),
+                        __ldg(T + 8 * ns + s), s, r, h);
   }
 }
 
@@ -191,12 +259,10 @@ __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
 __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
   Hit h{kBigT, 0.0f, 0.0f, -1, 0};
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
-  const float ax = fabsf(r.dx), ay = fabsf(r.dy), az = fabsf(r.dz);
-  const bool par = ax < kDirTiny || ay < kDirTiny || az < kDirTiny;
-  int axis = ay > ax ? 1 : 0;
-  axis = az > fmaxf(ax, ay) ? 2 : axis;
-  const float sgn = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-  const int* __restrict__ order = b.orders + (axis * 2 + (sgn < 0.0f)) * b.K1;
+  const bool par = fabsf(r.dx) < kDirTiny || fabsf(r.dy) < kDirTiny ||
+                   fabsf(r.dz) < kDirTiny;
+  const int* __restrict__ order =
+      b.orders + order_index(r.dx, r.dy, r.dz) * b.K1;
   for (int k = 0; k < b.K1; ++k) {
     const int kk = __ldg(order + k);
     if (!(slab_entry(b.sc + 8LL * kk, r, ix, iy, iz, par) <
@@ -215,6 +281,306 @@ __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
   }
   return h;
 }
+
+// --- the block walk (spawn_kernel, shadow_shade_kernel) ------------------
+
+struct BlockHit {
+  float t, u, v;
+  int slot;        // packed slot of the winning lane, -1 on a miss
+  int tests;       // ray-triangle tests this thread's warp ran
+};
+
+// Dynamic shared memory of a block walk, in floats: a ring of three
+// chunks (3 x 9 x 128), the supercluster box and its G*S segment boxes
+// ((1 + G*S) x 8), and each thread's segment entries (G*S x block).
+constexpr int walk_smem_floats(int G, int S, int block) {
+  return 3 * kChunkFloats + 8 * (1 + G * S) + G * S * block;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Bits [lo, hi) of a 32-bit mask (0 <= lo < hi <= 32).
+__device__ __forceinline__ unsigned bit_range(int lo, int hi) {
+  return (hi >= 32 ? ~0u : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// One ray against the float4 lane groups `groups` (bit j: lanes 4j..4j+3)
+// of a staged chunk, in lane order.  Every thread of the warp reads the
+// same lanes: each float4 read is a broadcast of four lanes of one plane.
+template <bool kUV, bool kSlot>
+__device__ __forceinline__ void mt_chunk(const float* buf, unsigned groups,
+                                         int base, const Ray& r,
+                                         BlockHit& h) {
+  const float4* q = reinterpret_cast<const float4*>(buf);
+  while (groups) {
+    const int j = __ffs(groups) - 1;
+    groups &= groups - 1u;
+    const float4 a0 = q[j], a1 = q[kChunk4 + j], a2 = q[2 * kChunk4 + j];
+    const float4 b0 = q[3 * kChunk4 + j], b1 = q[4 * kChunk4 + j],
+                 b2 = q[5 * kChunk4 + j];
+    const float4 c0 = q[6 * kChunk4 + j], c1 = q[7 * kChunk4 + j],
+                 c2 = q[8 * kChunk4 + j];
+    const int s = base + 4 * j;
+    mt_test<kUV, kSlot>(a0.x, a1.x, a2.x, b0.x, b1.x, b2.x, c0.x, c1.x, c2.x,
+                        s, r, h);
+    mt_test<kUV, kSlot>(a0.y, a1.y, a2.y, b0.y, b1.y, b2.y, c0.y, c1.y, c2.y,
+                        s + 1, r, h);
+    mt_test<kUV, kSlot>(a0.z, a1.z, a2.z, b0.z, b1.z, b2.z, c0.z, c1.z, c2.z,
+                        s + 2, r, h);
+    mt_test<kUV, kSlot>(a0.w, a1.w, a2.w, b0.w, b1.w, b2.w, c0.w, c1.w, c2.w,
+                        s + 3, r, h);
+  }
+}
+
+// Plane-form ray i of (6, R) rays; past the last ray, a dead one.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
+                                        long long R, long long i) {
+  if (i >= R) return Ray{kDeadOrigin, kDeadOrigin, kDeadOrigin, 1.0f, 1.0f,
+                         1.0f};
+  return Ray{rays[i], rays[R + i], rays[2 * R + i], rays[3 * R + i],
+             rays[4 * R + i], rays[5 * R + i]};
+}
+
+// Closest hit of every ray of the block below `limit` (exact below it).
+// Every thread of the block calls it, with a dead ray past the live ones:
+// it holds barriers.  A dead ray gets t = BIG_T, slot -1.
+template <bool kUV, bool kSlot>
+__device__ BlockHit block_walk(const Bvh& b, const Ray& r, bool alive,
+                               float limit) {
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned mask_sm[2];
+  __shared__ float sum_sm[kMaxBlock / 32][3];
+  const int GS = b.G * b.S;
+  float* const rowbuf = reinterpret_cast<float*>(smem4);
+  float4* const box4 = reinterpret_cast<float4*>(rowbuf + 3 * kChunkFloats);
+  float* const segent = rowbuf + 3 * kChunkFloats + 8 * (1 + GS);
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+
+  // a dead ray's best t stays below every accepted t (>= 0): it never
+  // takes a hit, and its gates are closed by `alive`
+  BlockHit h{alive ? kBigT : -1.0f, 0.0f, 0.0f, -1, 0};
+
+  // the block's summed live directions, in a fixed order
+  float sx = alive ? r.dx : 0.0f, sy = alive ? r.dy : 0.0f,
+        sz = alive ? r.dz : 0.0f;
+  for (int o = 16; o > 0; o >>= 1) {
+    sx += __shfl_xor_sync(0xffffffffu, sx, o);
+    sy += __shfl_xor_sync(0xffffffffu, sy, o);
+    sz += __shfl_xor_sync(0xffffffffu, sz, o);
+  }
+  __syncthreads();   // a previous walk has read mask_sm and sum_sm
+  if (lane == 0) {
+    sum_sm[tid >> 5][0] = sx;
+    sum_sm[tid >> 5][1] = sy;
+    sum_sm[tid >> 5][2] = sz;
+  }
+  if (tid == 0) mask_sm[0] = mask_sm[1] = 0u;
+  if (__syncthreads_or(alive)) {
+    sx = sy = sz = 0.0f;
+    for (int w = 0; w < nt / 32; ++w) {
+      sx += sum_sm[w][0];
+      sy += sum_sm[w][1];
+      sz += sum_sm[w][2];
+    }
+    const int* __restrict__ order = b.orders + order_index(sx, sy, sz) * b.K1;
+    const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+    const bool par = fabsf(r.dx) < kDirTiny || fabsf(r.dy) < kDirTiny ||
+                     fabsf(r.dz) < kDirTiny;
+    const int ns = static_cast<int>(b.ns);
+    const int nch = b.C / kChunk;
+    const int LC = b.C / b.S;   // lanes per segment
+
+    for (int k = 0; k < b.K1; ++k) {
+      const int kk = __ldg(order + k);
+      // stage the supercluster box and its segment boxes
+      const float4* sc4 = reinterpret_cast<const float4*>(b.sc + 8 * kk);
+      const float4* seg4 =
+          reinterpret_cast<const float4*>(b.seg + 8 * kk * GS);
+      for (int q = tid; q < 2 * (1 + GS); q += nt)
+        box4[q] = q < 2 ? __ldg(sc4 + q) : __ldg(seg4 + q - 2);
+      __syncthreads();
+      // this thread's gates: the supercluster, then each row on the min
+      // of its S segment entries (the per-ray walk's gates)
+      const float cap = fminf(h.t, limit);
+      const bool entered =
+          alive && slab_entry(box4[0], box4[1], r, ix, iy, iz, par) < cap;
+      unsigned bits = 0u;
+      if (entered) {
+        for (int g = 0; g < b.G; ++g) {
+          float m = kBigT;
+          for (int s = 0; s < b.S; ++s) {
+            const int q = g * b.S + s;
+            const float e = slab_entry(box4[2 + 2 * q], box4[3 + 2 * q], r,
+                                       ix, iy, iz, par);
+            segent[q * nt + tid] = e;
+            m = fminf(m, e);
+          }
+          bits |= (m < cap ? 1u : 0u) << g;
+        }
+      }
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (lane == 0 && bits) atomicOr(&mask_sm[k & 1], bits);
+      __syncthreads();
+      const unsigned rowmask = mask_sm[k & 1];
+      if (tid == 0) mask_sm[(k + 1) & 1] = 0u;  // read before this barrier
+      if (!rowmask) continue;
+
+      // the block's rows, chunk by chunk, in a ring of three buffers:
+      // the copies of units u+1 and u+2 are in flight while unit u is
+      // tested, and one barrier per unit both publishes unit u and frees
+      // the buffer of unit u-1
+      const int units = __popc(rowmask) * nch;
+      unsigned pm = rowmask;   // producer: rows not yet started
+      int pg = __ffs(pm) - 1, pc = 0;
+      pm &= pm - 1;
+      auto stage = [&](int buf) {
+        const float* src = b.tri + (kk * b.G + pg) * b.C + pc * kChunk;
+        float* dst = rowbuf + buf * kChunkFloats;
+        for (int q = tid; q < 9 * kChunk4; q += nt) {
+          const int p = q / kChunk4, w = q - p * kChunk4;
+          cp_async16(dst + p * kChunk + 4 * w, src + p * ns + 4 * w);
+        }
+        cp_async_commit();
+        if (++pc == nch) {
+          pc = 0;
+          pg = __ffs(pm) - 1;
+          pm &= pm - 1;
+        }
+      };
+      unsigned cm = rowmask;   // consumer: rows not yet tested
+      int cg = 0, cc = nch - 1;
+      stage(0);
+      if (units > 1)
+        stage(1);
+      else
+        cp_async_commit();     // an empty group keeps the count uniform
+      for (int u = 0; u < units; ++u) {
+        if (++cc == nch) {
+          cc = 0;
+          cg = __ffs(cm) - 1;
+          cm &= cm - 1;
+        }
+        // the lanes this warp tests: the segments of the chunk that one
+        // of its rays still enters before its best t (the per-ray walk's
+        // gate, per segment and against the best t so far)
+        const int lo = cc * kChunk, hi = lo + kChunk;
+        const float cur = fminf(h.t, limit);
+        unsigned groups = 0u;
+        for (int s = lo / LC; s < b.S && s * LC < hi; ++s) {
+          const bool need =
+              entered && segent[(cg * b.S + s) * nt + tid] < cur;
+          if (__any_sync(0xffffffffu, need))
+            groups |= bit_range((max(s * LC, lo) - lo) >> 2,
+                                (min((s + 1) * LC, hi) - lo + 3) >> 2);
+        }
+        h.tests += 4 * __popc(groups);
+        cp_async_wait_prev();  // unit u has landed (u+1 may be in flight)
+        __syncthreads();
+        if (u + 2 < units)
+          stage((u + 2) % 3);
+        else
+          cp_async_commit();
+        mt_chunk<kUV, kSlot>(rowbuf + (u % 3) * kChunkFloats, groups,
+                             (kk * b.G + cg) * b.C + lo, r, h);
+      }
+    }
+  }
+  if (!alive) h.t = kBigT;
+  return h;
+}
+
+// A window of kBatches * blockDim consecutive rays per block: its live
+// rays are packed to the front in their order (a stable partition) and
+// walked in batches of blockDim, so dead rays scattered among live ones
+// (shadow rays of misses and back faces) idle no lane; a window with no
+// live ray walks nothing.  `epi(i, ray, alive, hit)` writes ray i's
+// outputs; every ray of the window gets exactly one call.
+template <bool kUV, bool kSlot, typename Epilogue>
+__device__ void walk_window(const Bvh& b, const float* __restrict__ rays,
+                            long long R, float limit, int* tests_out,
+                            Epilogue epi) {
+  __shared__ int part_sm[kBatches * kMaxBlock];
+  __shared__ int count_sm[kBatches][kMaxBlock / 32];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31,
+            warp = tid >> 5, nw = nt / 32;
+  const long long base = blockIdx.x * static_cast<long long>(kBatches * nt);
+  unsigned ballots[kBatches];
+#pragma unroll
+  for (int k = 0; k < kBatches; ++k) {
+    const long long i = base + k * nt + tid;
+    const bool alive = i < R && fabsf(rays[i]) < kAliveLimit;
+    ballots[k] = __ballot_sync(0xffffffffu, alive);
+    if (lane == 0) count_sm[k][warp] = __popc(ballots[k]);
+  }
+  __syncthreads();
+  int live = 0, before[kBatches];
+#pragma unroll
+  for (int k = 0; k < kBatches; ++k)
+    for (int w = 0; w < nw; ++w) {
+      if (w == warp) before[k] = live;
+      live += count_sm[k][w];
+    }
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kBatches; ++k) {
+    const int off = k * nt + tid;
+    const int rank = before[k] + __popc(ballots[k] & lt);   // live before
+    part_sm[(ballots[k] >> lane) & 1u ? rank : live + off - rank] = off;
+  }
+  __syncthreads();
+  const int batches = (live + nt - 1) / nt;
+  for (int bt = 0; bt < batches; ++bt) {
+    const int p = bt * nt + tid;
+    const long long i = base + part_sm[p];
+    const Ray r = load_ray(rays, R, i);
+    const BlockHit h = block_walk<kUV, kSlot>(b, r, p < live, limit);
+    if (i < R) {
+      if (tests_out) tests_out[i] = h.tests;
+      epi(i, r, p < live, h);
+    }
+  }
+  const BlockHit miss{kBigT, 0.0f, 0.0f, -1, 0};
+  for (int p = batches * nt + tid; p < kBatches * nt; p += nt) {
+    const long long i = base + part_sm[p];
+    if (i < R) {
+      if (tests_out) tests_out[i] = 0;
+      epi(i, load_ray(rays, R, i), false, miss);
+    }
+  }
+}
+
+// Launch configuration of a block-walk kernel: its dynamic shared memory,
+// opted in above the default 48 KB.
+template <typename K>
+cudaError_t walk_config(K kernel, const Bvh& b, int block, size_t* smem) {
+  if (b.C % kChunk != 0 || b.G < 1 || b.G > kMaxG || b.S < 1 ||
+      b.C % b.S != 0 ||
+      block % 32 != 0 || block < 32 || block > kMaxBlock ||
+      9 * b.ns >= (1LL << 31) ||
+      8LL * b.K1 * b.G * b.S >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  *smem = sizeof(float) * walk_smem_floats(b.G, b.S, block);
+  if (*smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  return cudaSuccess;
+}
+
+// --- shading helpers ------------------------------------------------------
 
 // shade._normalize / pallas_bvh._norm3: v / where(|v| > 0, |v|, 1).
 __device__ __forceinline__ void norm3(float x, float y, float z, float& ox,
@@ -261,6 +627,8 @@ __device__ __forceinline__ int sort_key(int key_mode, float cox, float coy,
                        : ((dirbin << 21) | morton);
 }
 
+// --- the fused kernels ------------------------------------------------------
+
 struct SpawnArgs {
   Bvh bvh;
   const float* __restrict__ rays;    // (6, R) origin xyz, direction xyz
@@ -279,22 +647,18 @@ struct SpawnArgs {
   float* shadow_out;   // (6, L*R) light-major shadow rays
   float* child_out;    // (6, R*b) child rays, parent-major interleave
   int* key_out;        // (R*b,)
-  int* rows_out;       // (R,) or null: rows that ran Moller-Trumbore
+  int* tests_out;      // (R,) or null: tests each ray's warp ran
 };
 
-__global__ void spawn_kernel(SpawnArgs a) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= a.R) return;
+// Spawn outputs of ray i (pallas_bvh.py:811-896): t (+ u, v), the winning
+// record, one shadow ray per light and the child rays with their keys.
+template <bool kUV>
+__device__ __forceinline__ void spawn_epilogue(const SpawnArgs& a,
+                                               long long i, const Ray& r,
+                                               bool alive, const BlockHit& h) {
   const long long R = a.R;
-  const Ray r{a.rays[i], a.rays[R + i], a.rays[2 * R + i],
-              a.rays[3 * R + i], a.rays[4 * R + i], a.rays[5 * R + i]};
-  const bool alive = fabsf(r.ox) < kAliveLimit;
-  Hit h{kBigT, 0.0f, 0.0f, -1, 0};
-  if (alive) h = traverse(a.bvh, r, kBigT);
-  if (a.rows_out) a.rows_out[i] = h.rows;
-
   a.t_out[i] = h.t;
-  if (a.uv_out) {
+  if (kUV) {
     a.uv_out[i] = h.u;
     a.uv_out[R + i] = h.v;
   }
@@ -358,6 +722,15 @@ __global__ void spawn_kernel(SpawnArgs a) {
   }
 }
 
+template <bool kUV>
+__global__ void __launch_bounds__(kMaxBlock, 3) spawn_kernel(SpawnArgs a) {
+  walk_window<kUV, true>(
+      a.bvh, a.rays, a.R, kBigT, a.tests_out,
+      [&](long long i, const Ray& r, bool alive, const BlockHit& h) {
+        spawn_epilogue<kUV>(a, i, r, alive, h);
+      });
+}
+
 struct ShadowArgs {
   Bvh bvh;
   const float* __restrict__ rays;    // (6, NS) shadow rays, light-major
@@ -367,19 +740,16 @@ struct ShadowArgs {
   const float* __restrict__ view;    // (3, R) parent ray directions
   const float* __restrict__ light_color;  // (L, 3)
   float* out;                        // (3, NS) radiance per light chunk
-  int* rows_out;                     // (NS,) or null
+  int* tests_out;                    // (NS,) or null
 };
 
-__global__ void shadow_shade_kernel(ShadowArgs a) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= a.NS) return;
+// Radiance of shadow ray i: occlusion in the (0.01, 1.0) window of the
+// closest hit, then Phong (pallas_bvh.py:934-960).  `alive`: the parent
+// hit and faces the light (from spawn).
+__device__ __forceinline__ void shade_epilogue(const ShadowArgs& a,
+                                               long long i, const Ray& r,
+                                               bool alive, const BlockHit& h) {
   const long long NS = a.NS, R = a.R;
-  const Ray r{a.rays[i], a.rays[NS + i], a.rays[2 * NS + i],
-              a.rays[3 * NS + i], a.rays[4 * NS + i], a.rays[5 * NS + i]};
-  const bool alive = fabsf(r.ox) < kAliveLimit;   // hit & facing, from spawn
-  Hit h{kBigT, 0.0f, 0.0f, -1, 0};
-  if (alive) h = traverse(a.bvh, r, kShadowTMax);
-  if (a.rows_out) a.rows_out[i] = h.rows;
   const bool blocked = h.t < kBigT && h.t > kShadowTMin && h.t < kShadowTMax;
 
   const long long li = i / R;          // light chunk of this shadow ray
@@ -403,6 +773,17 @@ __global__ void shadow_shade_kernel(ShadowArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kMaxBlock, 3)
+    shadow_shade_kernel(ShadowArgs a) {
+  walk_window<false, false>(
+      a.bvh, a.rays, a.NS, kShadowTMax, a.tests_out,
+      [&](long long i, const Ray& r, bool alive, const BlockHit& h) {
+        shade_epilogue(a, i, r, alive, h);
+      });
+}
+
+// --- the generic closest hit ------------------------------------------------
+
 struct ClosestArgs {
   Bvh bvh;
   const float* __restrict__ rays;    // (6, R) origin xyz, direction xyz
@@ -417,9 +798,8 @@ struct ClosestArgs {
   int* rows_out;    // (R,) or null: rows that ran Moller-Trumbore
 };
 
-// Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel): the same walk
-// as the fused kernels, the winning record taken as the spawn epilogue
-// takes it.
+// Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel): the per-ray
+// walk, the winning record taken as the spawn epilogue takes it.
 __global__ void closest_kernel(ClosestArgs a) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= a.R) return;
@@ -454,17 +834,21 @@ extern "C" int rtx_bvh_spawn(
     int S, int G, int K1, float lo0, float lo1, float lo2, float inv0,
     float inv1, float inv2, int key_mode, float* t_out, float* uv_out,
     float* rec_out, float* shadow_out, float* child_out, int* key_out,
-    int* rows_out, int block, void* stream) {
+    int* tests_out, int block, void* stream) {
   if (n_rec < 3 || n_rec > kMaxRec) return static_cast<int>(cudaErrorInvalidValue);
-  if (R == 0) return 0;
   SpawnArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
               rays, R, gauss, b, lights, L, rec, n_rec,
               {lo0, lo1, lo2}, {inv0, inv1, inv2}, key_mode,
               t_out, uv_out, rec_out, shadow_out, child_out, key_out,
-              rows_out};
-  const long long grid = (R + block - 1) / block;
-  spawn_kernel<<<static_cast<unsigned>(grid), block, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+              tests_out};
+  auto kernel = uv_out ? spawn_kernel<true> : spawn_kernel<false>;
+  size_t smem = 0;
+  const cudaError_t err = walk_config(kernel, a.bvh, block, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R == 0) return 0;
+  const long long grid = (R + kBatches * block - 1) / (kBatches * block);
+  kernel<<<static_cast<unsigned>(grid), block, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,13 +856,16 @@ extern "C" int rtx_bvh_shadow_shade(
     const float* rays, long long NS, long long R, const float* normal,
     const float* color, const float* view, const float* light_color,
     const float* tri, const float* seg, const float* sc, const int* orders,
-    long long ns, int C, int S, int G, int K1, float* out, int* rows_out,
+    long long ns, int C, int S, int G, int K1, float* out, int* tests_out,
     int block, void* stream) {
-  if (NS == 0) return 0;
   ShadowArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
-               rays, NS, R, normal, color, view, light_color, out, rows_out};
-  const long long grid = (NS + block - 1) / block;
-  shadow_shade_kernel<<<static_cast<unsigned>(grid), block, 0,
+               rays, NS, R, normal, color, view, light_color, out, tests_out};
+  size_t smem = 0;
+  const cudaError_t err = walk_config(shadow_shade_kernel, a.bvh, block, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (NS == 0) return 0;
+  const long long grid = (NS + kBatches * block - 1) / (kBatches * block);
+  shadow_shade_kernel<<<static_cast<unsigned>(grid), block, smem,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

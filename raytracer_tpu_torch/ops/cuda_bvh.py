@@ -14,11 +14,13 @@ Three CUDA kernels (``csrc/cuda_bvh.cu``) replace the TPU kernels:
   shadow mode) of the composable wavefront's `query` and `shadow`.
 
 What bounds them on an H100 and what the design does about it is noted
-at the top of the CUDA source.  Each wrapper runs the plain version for
-tensors on the CPU only; for CUDA tensors it launches its kernel or
-raises.  Each keeps a launch count (`bvh_spawn.launches`,
-`bvh_shadow_shade.launches`, `bvh_closest.launches`) that only a kernel
-launch raises.
+at the top of the CUDA source: the two fused kernels walk the BVH per
+block of rays, staging each row the block needs in shared memory
+(`block_walk_plan` checks their shapes), and `bvh_closest` walks per
+ray.  Each wrapper runs the plain version for tensors on the CPU only;
+for CUDA tensors it launches its kernel or raises.  Each keeps a launch
+count (`bvh_spawn.launches`, `bvh_shadow_shade.launches`,
+`bvh_closest.launches`) that only a kernel launch raises.
 
 Rays are plane form: one (6, R) float32 tensor [ox, oy, oz, dx, dy, dz]
 per batch (the TPU kernels took six (nb, 128) planes; the port needs no
@@ -47,6 +49,12 @@ from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 ptr, raise_on)
 
 DEFAULT_RAY_BLOCK = 128      # CUDA threads per block (one ray each)
+
+# The fused kernels' block walk (csrc/cuda_bvh.cu block_walk, walk_window).
+CHUNK = 128                  # triangle lanes staged in shared memory at once
+MAX_GROUP = 32               # rows per supercluster (a 32-bit row mask)
+MAX_RAY_BLOCK = 256          # the kernels' __launch_bounds__
+MAX_DYNAMIC_SMEM = 232_448 - 8192   # H100 per-block limit, less the static
 
 DEAD_ORIGIN = 1.0e35         # sentinel origin of a dead ray
 ALIVE_LIMIT = 1.0e30         # |ox| below this: the ray is alive
@@ -109,6 +117,37 @@ class PackedBVH:
     @property
     def num_superclusters(self) -> int:
         return self.sc_aabb.shape[0]
+
+
+def block_walk_plan(bvh: PackedBVH, ray_block: int) -> dict:
+    """Launch plan of the fused kernels' block walk: the chunks of CHUNK
+    lanes each row is staged in, and the dynamic shared memory of one
+    block in bytes (a ring of three chunks of 9 planes, the
+    supercluster box and its G*S segment boxes, and each thread's G*S
+    segment entries; csrc/cuda_bvh.cu walk_smem_floats).  Raises
+    ValueError on a shape the kernels do not take."""
+    C, G, S = bvh.C, bvh.G, bvh.S
+    problems = []
+    if C % CHUNK:
+        problems.append(f"C={C} lanes is not a multiple of {CHUNK}")
+    if S < 1 or C % S:
+        problems.append(f"S={S} segments do not divide C={C} lanes")
+    if not 1 <= G <= MAX_GROUP:
+        problems.append(f"G={G} rows per supercluster is outside "
+                        f"[1, {MAX_GROUP}]")
+    if ray_block % 32 or not 32 <= ray_block <= MAX_RAY_BLOCK:
+        problems.append(f"ray_block={ray_block} is not a multiple of 32 in "
+                        f"[32, {MAX_RAY_BLOCK}]")
+    if 9 * bvh.num_slots >= 2 ** 31 or bvh.seg_aabb.numel() >= 2 ** 31:
+        problems.append(f"{bvh.num_slots} slots overflow 32-bit offsets")
+    if bvh.tri.data_ptr() % 16:
+        problems.append("the triangle planes are not 16-byte aligned")
+    smem = 4 * (3 * 9 * CHUNK + 8 * (1 + G * S) + G * S * ray_block)
+    if smem > MAX_DYNAMIC_SMEM:
+        problems.append(f"{smem} B of shared memory per block")
+    if problems:
+        raise ValueError("BVH block walk: " + "; ".join(problems))
+    return dict(chunks=C // CHUNK, smem_bytes=smem)
 
 
 # --- plain PyTorch versions ---------------------------------------------
@@ -326,7 +365,8 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
     [normal xyz, diffuse rgb (, tex id)]; world_lo / world_inv_span:
     3 floats each (float32 values) for the sort key.
     rows_out: optional (R,) int32 that receives, per ray, the number of
-    rows that ran Moller-Trumbore (kernel only; the work counter).
+    ray-triangle tests (lanes, not rows) its warp ran (kernel only; the
+    tests run).
 
     Returns a dict: t (R,) [BIG_T on a miss]; u, v (R,) when emit_uv;
     rec (n_rec, R) winning record [0 on a miss]; shadow (6, L*R)
@@ -352,6 +392,7 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
                          f"{tuple(gauss.shape)} for {b} children")
     if rec.shape[1] != bvh.num_slots or not 3 <= n_rec <= 8:
         raise ValueError(f"bvh_spawn: rec {tuple(rec.shape)}")
+    block_walk_plan(bvh, ray_block)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     t = torch.empty((R,), **f32)
@@ -389,8 +430,10 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
     (replaces pallas_bvh_shadow_shade, pallas_bvh.py:1068).
 
     shadow_rays (6, L*R) f32 from `bvh_spawn`; normal, color, view
-    (3, R) f32 parent-level planes; light_color (L, 3) f32.  Returns
-    (3, L*R) radiance per light chunk; the caller sums the L chunks."""
+    (3, R) f32 parent-level planes; light_color (L, 3) f32.  rows_out:
+    optional (L*R,) int32, the ray-triangle tests (lanes) each shadow
+    ray's warp ran (kernel only).  Returns (3, L*R) radiance per light
+    chunk; the caller sums the L chunks."""
     if shadow_rays.device.type == "cpu":
         return bvh_shadow_shade_plain(shadow_rays, normal, color, view,
                                       light_color, bvh)
@@ -406,6 +449,7 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
     for name, t in (("normal", normal), ("color", color), ("view", view)):
         if t.shape != (3, R):
             raise ValueError(f"bvh_shadow_shade: {name} {tuple(t.shape)}")
+    block_walk_plan(bvh, ray_block)
     out = torch.empty((3, NS), dtype=torch.float32, device=normal.device)
     lib = _load()
     start = event(bvh_shadow_shade)
@@ -438,7 +482,8 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
     walk-order and HBM-streaming variants) are accepted for parity and
     change nothing: one walk serves all of them.
     rows_out: optional (R,) int32 that receives, per ray, the number of
-    rows that ran Moller-Trumbore (kernel only; the work counter).
+    rows that ran Moller-Trumbore (kernel only; the work counter, and
+    the fused kernels' "tests needed": this kernel walks per ray).
 
     Returns a dict: t (R,) [BIG_T on a miss]; unless shadow: u, v (R,)
     [0 on a miss], slot (R,) int32 packed slot [-1 on a miss], and rec

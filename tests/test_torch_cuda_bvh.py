@@ -419,3 +419,42 @@ def test_bvh_closest_axis_parallel_rays():
     np.testing.assert_array_equal(got < BIG_T, want < BIG_T)
     np.testing.assert_allclose(got[:4], 1.0, rtol=1e-6)
     assert got[4] == BIG_T and not np.isnan(got).any()
+
+
+# --- the fused kernels' launch plan (block walk) ----------------------------
+
+
+def _packed(C=256, G=8, S=4, K1=2, offset=0):
+    NL = K1 * G
+    tri = torch.zeros(9 * NL * C + offset)[offset:].view(9, NL * C)
+    return cuda_bvh.PackedBVH(
+        tri=tri, seg_aabb=torch.zeros((NL * S, 8)),
+        sc_aabb=torch.zeros((K1, 8)),
+        orders=torch.zeros((6, K1), dtype=torch.int32), C=C, S=S, G=G)
+
+
+@pytest.mark.parametrize("C,G,S,block", [(128, 8, 4, 128), (256, 8, 4, 128),
+                                         (384, 8, 4, 256), (256, 32, 2, 32)])
+def test_block_walk_plan_stages_chunks_of_128_lanes(C, G, S, block):
+    """Any C that is a multiple of 128 runs in C/128 staged chunks; the
+    shared memory is a ring of three 9-plane chunks, the supercluster
+    and segment boxes and G*S segment entries per thread."""
+    plan = cuda_bvh.block_walk_plan(_packed(C, G, S), block)
+    assert plan["chunks"] == C // 128
+    assert plan["smem_bytes"] == 4 * (3 * 9 * 128 + 8 * (1 + G * S)
+                                      + G * S * block)
+
+
+@pytest.mark.parametrize("kw,block,what", [
+    (dict(C=192), 128, "multiple of 128"),
+    (dict(G=33), 128, "rows per supercluster"),
+    (dict(), 100, "ray_block"),
+    (dict(), 512, "ray_block"),
+    (dict(offset=1), 128, "16-byte aligned"),
+    (dict(S=3), 128, "segments do not divide"),
+    (dict(S=256), 256, "shared memory"),
+])
+def test_block_walk_plan_raises_on_shapes_the_kernels_do_not_take(kw, block,
+                                                                  what):
+    with pytest.raises(ValueError, match=what):
+        cuda_bvh.block_walk_plan(_packed(**kw), block)
