@@ -3,9 +3,6 @@
     python3 chip_smoke.py            # the whole check (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only, small
     python3 chip_smoke.py --profile  # + kernel profiles of two renders
-    python3 chip_smoke.py --parent OLD/cuda_bvh.cu
-                                     # + the BVH kernels of another
-                                     #   cuda_bvh.cu, timed in turns
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -23,14 +20,15 @@ Phases (any failure raises and exits non-zero):
    sorted last) of one 1-spp trace_radiance wavefront of thai2 at
    1024x1024; bvh_closest also on level-0 slices with 6 and 7 record
    planes and with a t limit, both on a slice of axis-parallel rays.
-   Each kernel and plain version is timed at each shape, and the kernels
-   count their ray-triangle tests for the bound.  The fused kernels'
-   bound counts the tests their inputs need: the rows that the per-ray
-   walk of bvh_closest runs on the same rays at the same t limit (BIG_T
+   Each kernel and plain version is timed at each shape.  The bound of
+   every BVH kernel counts the ray-triangle tests its inputs need: the
+   lanes of the segments that the per-ray walk of bvh_closest enters
+   before each ray's best t, on the same rays at the same t limit (BIG_T
    for spawn, 1.0 in shadow mode for shadow-shade), so a kernel that
-   tests more rows does not raise its own bound; the rows the fused
-   kernels ran themselves are reported beside it as the tests run.
-   Then whole 64x64
+   tests more does not raise its own bound.  Beside it stand the bound
+   from that walk's whole rows (PR 1's yardstick) and, for the fused
+   kernels, the tests they ran themselves (their own counters); the
+   cluster kernel's bound counts the clusters it tests.  Then whole 64x64
    renders on the card against the plain path on the CPU, both fed the
    same numpy-made draws: the fused path (spp 2) and accel="cluster"
    (spp 1);
@@ -47,12 +45,11 @@ Phases (any failure raises and exits non-zero):
       __graft_entry__.entry() runs), thai2 1024x1024, 1 sample,
       recursions 2: 6 bvh_closest launches;
    each timed, with each kernel's launch count and CUDA-event times;
-5. with --parent: the fused kernels at each level, bvh_closest and
-   cluster_closest at the level-1 closest batch, and the fused
-   render(16), each with the parent's cuda_bvh library and this tree's
-   in turns (parent, new, new, parent) on the same inputs;
-6. one JSON line describing each ported kernel;
-7. the last line: {"ok": true, "device": {...}}.
+5. one JSON line describing each ported kernel;
+6. the last line: {"ok": true, "device": {...}}.
+
+raytracer_tpu_torch/scripts/ab_cuda_bvh.py times another version of
+csrc/cuda_bvh.cu against this tree's on the same inputs.
 
 Tolerance of the kernel checks: the kernels are built with --fmad=false,
 so they round like the plain versions op for op, and a live ray may
@@ -179,50 +176,6 @@ def read_counts():
     return counts, times
 
 
-TURNS = ("parent", "new", "new", "parent")
-
-
-def start_parent_build(src):
-    """nvcc of another cuda_bvh.cu (the same C interface) into its own
-    library, started now beside the main build."""
-    from raytracer_tpu_torch.ops import cuda_build
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(cuda_build.BUILD_DIR, "libcuda_bvh_parent.so")
-    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-           "-o", out, os.path.abspath(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
-
-
-class Libs:
-    """This tree's cuda_bvh library and a parent's, swapped in turns
-    under the same wrappers."""
-
-    def __init__(self, build):
-        import ctypes
-        from raytracer_tpu_torch.ops import cuda_bvh
-        proc, path = build
-        self.report, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"parent nvcc failed:\n{self.report}")
-        self.new = cuda_bvh._load()
-        self.parent = ctypes.CDLL(path)
-        cuda_bvh._setup(self.parent)
-
-    def use(self, which):
-        from raytracer_tpu_torch.ops import cuda_build
-        cuda_build._libs["cuda_bvh"] = getattr(self, which)
-
-    def turns(self, fn):
-        """fn() under each library in TURNS; [(which, result)]."""
-        out = []
-        for which in TURNS:
-            self.use(which)
-            out.append((which, fn()))
-        self.use("new")
-        return out
-
-
 def ptxas_lines(name, report):
     """The per-kernel lines of a -Xptxas -v report: entry, registers,
     shared memory, spills."""
@@ -304,13 +257,63 @@ def check_shade(what, sk, sp, shadow_rays):
     return err
 
 
-def phase_kernels(rt, quick, rec, libs=None):
-    """Kernel vs plain at the main path's shapes; returns the numbers the
-    kernels line reports.  With `libs`, each fused kernel is also timed
-    with the parent's library and this tree's in turns."""
-    import numpy as np
+def bound(nbytes_moved, tests):
+    """(bound_ms, bound_by) of a kernel that must move `nbytes_moved`
+    bytes and run `tests` Moller-Trumbore tests."""
+    from raytracer_tpu_torch.ops.cuda_bvh import MT_OPS
+    t_bytes = nbytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = tests * MT_OPS / H100_F32_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def spawn_kw(isect):
+    return dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
+                emit_uv=False, key_mode="dir6")
+
+
+def wavefront_levels(rt, pool, gen):
+    """The three levels of one pooled wavefront of rt's frame, the main
+    path's shapes: yields (level, b, rays, gauss, got, run), `got` the
+    spawn kernel's outputs on those rays and `run` its per-ray test
+    counter.  Level 0 is `pool` jittered samples of the tile-swizzled
+    frame; each next level is got's children sorted by key, as the
+    engine sorts them.  Draws come from the CUDA generator `gen`."""
     import torch
     from raytracer_tpu_torch.models.camera import generate_rays
+    from raytracer_tpu_torch.ops import cuda_bvh
+    dev = torch.device("cuda")
+    isect = rt.intersector
+    px, py = rt._pixels()
+    jitter = torch.rand((px.shape[0] * pool, 2), generator=gen, device=dev)
+    o, d = generate_rays(rt.camera.params(dev), px.repeat(pool),
+                         py.repeat(pool), jitter, rt.width, rt.height)
+    rays = torch.cat([o.t(), d.t()]).contiguous()
+    del o, d, jitter
+    for level, b in enumerate((2, 1, 0)):
+        R = rays.shape[1]
+        g = torch.randn((3 * b, R), generator=gen, device=dev)
+        run = torch.zeros((R,), dtype=torch.int32, device=dev)
+        got = cuda_bvh.bvh_spawn(rays, g, rt.scene_arrays.light_pos,
+                                 isect.packed, isect.shade_planes,
+                                 children=b, rows_out=run, **spawn_kw(isect))
+        yield level, b, rays, g, got, run
+        if b:
+            _, p = torch.sort(got["keys"], stable=True)
+            rays = got["children"].index_select(1, p)
+
+
+def shade_args(got, rays, light_color):
+    """bvh_shadow_shade's operands after a spawn launch `got` on `rays`."""
+    return (got["shadow"], got["rec"][0:3], got["rec"][3:6], rays[3:6],
+            light_color)
+
+
+def phase_kernels(rt, quick, rec):
+    """Kernel vs plain at the main path's shapes; returns the numbers the
+    kernels line reports."""
+    import numpy as np
+    import torch
     from raytracer_tpu_torch.ops import cuda_bvh
 
     dev = torch.device("cuda")
@@ -320,96 +323,72 @@ def phase_kernels(rt, quick, rec, libs=None):
     planes = isect.shade_planes
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    # level 0 of a real pooled wavefront of the main path: 8 samples of
-    # the tile-swizzled frame
-    pool = 1 if quick else 8
-    px, py = rt._pixels()
-    n = px.shape[0] * pool
-    jitter = torch.rand((n, 2), generator=gen, device=dev)
-    o, d = generate_rays(rt.camera.params(dev), px.repeat(pool),
-                         py.repeat(pool), jitter, rt.width, rt.height)
-    rays = torch.cat([o.t(), d.t()]).contiguous()
-    del o, d, jitter
-
     lp1, lc1 = scene.light_pos, scene.light_color
-    kw = dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
-              emit_uv=False, key_mode="dir6")
+    kw = spawn_kw(isect)
     reps = 2 if quick else 5
     bvh_bytes = nbytes(bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders)
     res = {k: {"err": 0.0, "levels": []} for k in ("spawn", "shadow_shade")}
     n_slice = 4096 if quick else 32768
     slices = []
-    for level, b in enumerate((2, 1, 0)):
+    for level, b, rays, g, got, run in wavefront_levels(rt, 1 if quick else 8,
+                                                        gen):
         R = rays.shape[1]
         n_live = int((rays[0].abs() < 1e30).sum())
         what = f"level {level} b={b} L=1 ({R} rays)"
-        g = torch.randn((3 * b, R), generator=gen, device=dev)
-        rows = torch.zeros((R,), dtype=torch.int32, device=dev)
-        got = cuda_bvh.bvh_spawn(rays, g, lp1, bvh, planes, children=b,
-                                 rows_out=rows, **kw)
         want, p_ms = timed(lambda: cuda_bvh.bvh_spawn_plain(
             rays, g, lp1, bvh, planes, children=b, **kw))
         res["spawn"]["err"] = max(res["spawn"]["err"], check_spawn(
             what, got, want, rays, b, 1, bvh, planes))
         del want
-        sh_args = (got["shadow"], got["rec"][0:3], got["rec"][3:6],
-                   rays[3:6], lc1)
-        rows_sh = torch.zeros((got["shadow"].shape[1],), dtype=torch.int32,
-                              device=dev)
-        sk = cuda_bvh.bvh_shadow_shade(*sh_args, bvh, rows_out=rows_sh)
+        sh_args = shade_args(got, rays, lc1)
+        run_sh = torch.zeros((got["shadow"].shape[1],), dtype=torch.int32,
+                             device=dev)
+        sk = cuda_bvh.bvh_shadow_shade(*sh_args, bvh, rows_out=run_sh)
         sp, ps_ms = timed(lambda: cuda_bvh.bvh_shadow_shade_plain(*sh_args,
                                                                   bvh))
         res["shadow_shade"]["err"] = max(res["shadow_shade"]["err"],
                                          check_shade(what, sk, sp, sh_args[0]))
         del sk, sp
-        # tests needed: the per-ray walk (bvh_closest) on the same rays
-        # at the same t limit, the yardstick of the bound
-        need = torch.zeros((R,), dtype=torch.int32, device=dev)
-        cuda_bvh.bvh_closest(rays, bvh, t_limit=BIG_T, rows_out=need)
-        need_sh = torch.zeros_like(rows_sh)
-        cuda_bvh.bvh_closest(sh_args[0], bvh, t_limit=1.0, shadow=True,
-                             rows_out=need_sh)
-
-        def spawn_fn():
-            return cuda_bvh.bvh_spawn(rays, g, lp1, bvh, planes, children=b,
-                                      **kw)
-
-        def shade_fn():
-            return cuda_bvh.bvh_shadow_shade(*sh_args, bvh)
-
-        k_ms = cuda_ms(spawn_fn, reps)
-        ks_ms = cuda_ms(shade_fn, reps)
-        turns = {}
-        if libs is not None:
-            turns = {"spawn": libs.turns(lambda: cuda_ms(spawn_fn, reps)),
-                     "shadow_shade": libs.turns(lambda: cuda_ms(shade_fn,
-                                                                reps))}
+        # the tests needed: the per-ray walk (bvh_closest) on the same
+        # rays at the same t limit counts its rows and, within them, the
+        # lanes of the segments each ray enters before its best t
+        need = {}
+        for name, r, kws in (("spawn", rays, dict(t_limit=BIG_T)),
+                             ("shadow_shade", sh_args[0],
+                              dict(t_limit=1.0, shadow=True))):
+            rows = torch.zeros((r.shape[1],), dtype=torch.int32, device=dev)
+            lanes = torch.zeros_like(rows)
+            cuda_bvh.bvh_closest(r, bvh, rows_out=rows, lanes_out=lanes,
+                                 **kws)
+            need[name] = (int(lanes.sum()), int(rows.sum()) * bvh.C)
+            del rows, lanes
+        k_ms = cuda_ms(lambda: cuda_bvh.bvh_spawn(
+            rays, g, lp1, bvh, planes, children=b, **kw), reps)
+        ks_ms = cuda_ms(lambda: cuda_bvh.bvh_shadow_shade(*sh_args, bvh),
+                        reps)
         sp_bytes = (nbytes(rays, g, lp1, planes) + bvh_bytes
                     + nbytes(*got.values()))
         ss_bytes = nbytes(*sh_args) + bvh_bytes + 3 * sh_args[0].shape[1] * 4
-        for name, ms, pms, by, r, nd in (
-                ("spawn", k_ms, p_ms, sp_bytes, rows, need),
-                ("shadow_shade", ks_ms, ps_ms, ss_bytes, rows_sh, need_sh)):
+        for name, ms, pms, by, r in (
+                ("spawn", k_ms, p_ms, sp_bytes, run),
+                ("shadow_shade", ks_ms, ps_ms, ss_bytes, run_sh)):
             n = r.numel()
-            tests = int(nd.sum()) * bvh.C     # rows of the per-ray walk
-            run = int(r.sum())                 # lanes the kernel tested
-            ops = tests * cuda_bvh.MT_OPS
-            t_bytes = by / H100_BYTES_PER_S * 1e3
-            t_ops = ops / H100_F32_OPS * 1e3
-            bound = max(t_bytes, t_ops)
+            tests, tests_rows = need[name]
+            tests_run = int(r.sum())       # lanes the kernel's warps tested
+            b_ms, b_by = bound(by, tests)
+            rb_ms, _ = bound(by, tests_rows)
             res[name]["levels"].append(dict(
-                level=level, rays=n, ms=ms, plain_ms=pms, bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=by, mt_ops=ops, tests=tests, tests_run=run,
-                turns_ms=turns.get(name)))
+                level=level, rays=n, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, bound_rows_ms=rb_ms, bytes=by,
+                mt_ops=tests * cuda_bvh.MT_OPS, tests=tests,
+                tests_rows=tests_rows, tests_run=tests_run))
             log(f"{name} level {level} ({n} rays): kernel {ms:.4f} ms "
-                f"({100 * bound / ms:.1f} % of bound), plain {pms:.1f} ms, "
-                f"bound {bound:.6f} ms ({by} B, {ops} MT ops); tests/ray "
-                f"needed {tests / n:.2f}, run {run / n:.2f} (x"
-                f"{run / max(tests, 1):.3f})")
-            if name in turns:
-                log(f"  {name} level {level} in turns: " + ", ".join(
-                    f"{w} {t:.4f} ms" for w, t in turns[name]))
+                f"({100 * b_ms / ms:.1f} % of bound), plain {pms:.1f} ms, "
+                f"bound {b_ms:.6f} ms ({by} B, {tests * cuda_bvh.MT_OPS} MT "
+                f"ops), row bound {rb_ms:.6f} ms ({100 * rb_ms / ms:.1f} %); "
+                f"tests/ray needed {tests / n:.2f} (rows: "
+                f"{tests_rows / n:.2f}), run {tests_run / n:.2f} (x"
+                f"{tests_run / max(tests, 1):.3f})")
         # slices for the other children and light counts
         if level == 0:
             slices.append(("level 0", rays[:, R // 2 - n_slice // 2:
@@ -417,10 +396,7 @@ def phase_kernels(rt, quick, rec, libs=None):
         elif level == 1:
             start = max(0, n_live // 2 - n_slice)
             slices.append(("level 1", rays[:, start:start + 2 * n_slice]))
-        if b:
-            _, p = torch.sort(got["keys"], stable=True)
-            rays = got["children"].index_select(1, p)
-        del got, g, sh_args, need, need_sh
+        del g, sh_args, run_sh
 
     rng = np.random.default_rng(1)
     lights = {1: (lp1, lc1),
@@ -443,8 +419,7 @@ def phase_kernels(rt, quick, rec, libs=None):
                 res["spawn"]["err"] = max(res["spawn"]["err"], check_spawn(
                     what, got, want, rays, b, L, bvh, planes))
                 if b == 0:
-                    args = (got["shadow"], got["rec"][0:3], got["rec"][3:6],
-                            rays[3:6], lc)
+                    args = shade_args(got, rays, lc)
                     res["shadow_shade"]["err"] = max(
                         res["shadow_shade"]["err"], check_shade(
                             what, cuda_bvh.bvh_shadow_shade(*args, bvh),
@@ -516,24 +491,6 @@ def phase_main(rt, rec):
                        peak_bytes=peak, launches=launches,
                        per_launch=per_launch)
     return launches, per_launch
-
-
-def phase_render_turns(rt, libs, rec):
-    """The fused render(16) with the parent's cuda_bvh library and this
-    tree's in turns, each after a cleared film."""
-    import torch
-
-    def render():
-        rt.film.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rt.render(16)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-    turns = libs.turns(render)
-    log("render(16) in turns: " + ", ".join(f"{w} {t:.4f} s"
-                                            for w, t in turns))
-    rec["render_turns_s"] = turns
 
 
 class Recorder:
@@ -654,15 +611,26 @@ def axis_parallel_rays(grid, n, seed):
     return torch.cat([o.t(), d.t()]).contiguous()
 
 
-def phase_closest_kernels(rt, quick, rec, libs=None):
+def closest_batches(rt, isect):
+    """The closest and shadow batches of levels 0 and 1 of one 1-spp
+    trace_radiance wavefront of rt's frame over `isect` (entry()'s
+    path): [(name, (6, R) rays)]."""
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.wavefront import trace_radiance
+    o, d = frame_rays(rt, seed=2)
+    recorder = Recorder(isect)
+    trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(3, "cuda")],
+                   recorder, 2, 1)
+    return [(f"level {i // 2} {kind}", rays) for i, (kind, rays)
+            in enumerate(recorder.calls[:4])]
+
+
+def phase_closest_kernels(rt, quick, rec):
     """bvh_closest and cluster_closest against their plain versions at
-    the level shapes of one 1-spp trace_radiance wavefront (tpl 70).
-    With `libs`, both are also timed at the level-1 closest batch with
-    the parent's cuda_bvh library and this tree's in turns."""
+    the level shapes of one 1-spp trace_radiance wavefront (tpl 70)."""
     import torch
     import raytracer_tpu_torch as rtx
     from raytracer_tpu_torch.core.shade import build_slot_records
-    from raytracer_tpu_torch.core.wavefront import trace_radiance
     from raytracer_tpu_torch.ops import cuda_bvh, cuda_cluster
 
     scene = rt.scene_arrays
@@ -671,25 +639,23 @@ def phase_closest_kernels(rt, quick, rec, libs=None):
     bvh, grid = isect_b.packed, isect_c.packed
     log(f"closest-hit structures: BVH {bvh.num_slots} slots (C={bvh.C}), "
         f"cluster grid K={grid.num_clusters} C={grid.C}")
-    # the level rays of one trace_radiance wavefront (entry()'s path)
-    o, d = frame_rays(rt, seed=2)
-    recorder = Recorder(isect_b)
-    trace_radiance(scene, o, d, [rtx.TorchDraws(3, "cuda")], recorder, 2, 1)
-    batches = [(f"level {i // 2} {kind}", rays) for i, (kind, rays)
-               in enumerate(recorder.calls[:4])]
-    del recorder, o, d
+    batches = closest_batches(rt, isect_b)
     reps = 2 if quick else 5
+    # each kernel's call (rows_out: rows or clusters tested; lanes_out:
+    # lanes of the segments entered, the BVH walk's tests needed)
     kernels = {
         "bvh_closest": (
-            lambda r, lim, sh, rows=None: cuda_bvh.bvh_closest(
-                r, bvh, t_limit=lim, shadow=sh, rows_out=rows),
+            lambda r, lim, sh, rows=None, lanes=None: cuda_bvh.bvh_closest(
+                r, bvh, t_limit=lim, shadow=sh, rows_out=rows,
+                lanes_out=lanes),
             lambda r, sh: cuda_bvh.bvh_closest_plain(r, bvh, shadow=sh),
             bvh.tri, bvh.C,
             bvh.num_slots * 36 + (bvh.seg_aabb.numel() + bvh.sc_aabb.numel()
                                   + bvh.orders.numel()) * 4),
         "cluster_closest": (
-            lambda r, lim, sh, rows=None: cuda_cluster.cluster_closest(
-                r, grid, t_limit=lim, rows_out=rows),
+            lambda r, lim, sh, rows=None, lanes=None:
+                cuda_cluster.cluster_closest(r, grid, t_limit=lim,
+                                             rows_out=rows),
             lambda r, sh: cuda_cluster.cluster_closest_plain(r, grid),
             grid.tri, grid.C,
             grid.num_slots * 36 + (grid.aabb.numel()
@@ -701,34 +667,31 @@ def phase_closest_kernels(rt, quick, rec, libs=None):
             lim = 1.0 if shadow else BIG_T
             R = rays.shape[1]
             rows = torch.zeros((R,), dtype=torch.int32, device=rays.device)
-            got = kern(rays, lim, shadow, rows)
+            lanes = torch.zeros_like(rows) if name == "bvh_closest" else None
+            got = kern(rays, lim, shadow, rows, lanes)
             want, p_ms = timed(lambda: plain(rays, shadow))
             res[name]["err"] = max(res[name]["err"], check_closest(
                 f"{name} {what} ({R} rays)", got, want, rays, tri, lim,
                 shadow))
             k_ms = cuda_ms(lambda: kern(rays, lim, shadow), reps)
             by = nbytes(rays) + struct_bytes + (4 if shadow else 16) * R
-            tests = int(rows.sum()) * C
-            ops = tests * cuda_bvh.MT_OPS
-            t_bytes = by / H100_BYTES_PER_S * 1e3
-            t_ops = ops / H100_F32_OPS * 1e3
+            tests_rows = int(rows.sum()) * C
+            tests = tests_rows if lanes is None else int(lanes.sum())
+            b_ms, b_by = bound(by, tests)
+            rb_ms, _ = bound(by, tests_rows)
             res[name]["levels"].append(dict(
-                batch=what, rays=R, ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=by, mt_ops=ops, tests=tests))
+                batch=what, rays=R, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_rows_ms=rb_ms, bytes=by,
+                mt_ops=tests * cuda_bvh.MT_OPS, tests=tests,
+                tests_rows=tests_rows))
             log(f"{name} {what} ({R} rays): kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms ({by} B, "
-                f"{ops} MT ops, {tests / R:.1f} ray-triangle tests/ray)")
+                f"{p_ms:.1f} ms, bound {b_ms:.6f} ms ({by} B, "
+                f"{tests * cuda_bvh.MT_OPS} MT ops), row bound "
+                f"{rb_ms:.6f} ms; tests/ray needed {tests / R:.2f}, run "
+                f"{tests_rows / R:.2f}")
             del got, want
         # the kernels line reports the largest shape: level 1 closest
         res[name].update(res[name]["levels"][2])
-        if libs is not None:
-            rays = batches[2][1]
-            res[name]["turns_ms"] = libs.turns(
-                lambda: cuda_ms(lambda: kern(rays, BIG_T, False), reps))
-            log(f"{name} {batches[2][0]} in turns: " + ", ".join(
-                f"{w} {t:.4f} ms" for w, t in res[name]["turns_ms"]))
 
     # slices: records, a t limit, axis-parallel rays
     n_slice = 4096 if quick else 65536
@@ -912,9 +875,6 @@ def main(argv):
                     help="also profile one render(8) by kernel")
     ap.add_argument("--json", metavar="PATH",
                     help="write everything measured to PATH")
-    ap.add_argument("--parent", metavar="CUDA_BVH_CU",
-                    help="also time the BVH kernels built from this source "
-                         "(same C interface), in turns with this tree's")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "raytracer_tpu_torch")):
@@ -937,23 +897,19 @@ def main(argv):
     rec["card"] = card
 
     t0 = time.perf_counter()
-    parent = start_parent_build(args.parent) if args.parent else None
     reports = cuda_build.build_all(verbose=True)
-    libs = Libs(parent) if parent else None
     build_s = time.perf_counter() - t0
     log(f"built kernels in {build_s:.2f} s")
     for name, report in reports.items():
         ptxas_lines(name, report)
-    if libs:
-        ptxas_lines("parent cuda_bvh", libs.report)
     rec["build_s"] = build_s
 
     size = 256 if args.quick else 1024
     rt = rtx.create_raytracer_from_file(
         os.path.join(REPO, "data", "thai2.dae"), width=size, height=size,
         triangles_per_leaf=256)
-    checks = phase_kernels(rt, args.quick, rec, libs)
-    closest = phase_closest_kernels(rt, args.quick, rec, libs)
+    checks = phase_kernels(rt, args.quick, rec)
+    closest = phase_closest_kernels(rt, args.quick, rec)
     if args.quick:
         return 0
     phase_render_compare(rec)
@@ -961,8 +917,6 @@ def main(argv):
     launches, per_launch = phase_main(rt, rec)
     n_cluster, cluster_times, rt_cluster = phase_cluster_main(rec)
     n_bvh, bvh_times = phase_bvh_trace(rt, rec)
-    if libs:
-        phase_render_turns(rt, libs, rec)
     if args.profile:
         phase_profile("fused", rt, 8, rec)
         phase_profile("cluster", rt_cluster, 2, rec)
@@ -982,8 +936,12 @@ def main(argv):
             "shape": f"main-path level 1, {c['rays']} rays",
             "levels_ms": [lv["ms"] for lv in c["levels"]],
             "levels_bound_ms": [lv["bound_ms"] for lv in c["levels"]],
+            "levels_bound_rows_ms": [lv["bound_rows_ms"]
+                                     for lv in c["levels"]],
             "tests_needed_per_ray": [lv["tests"] / lv["rays"]
                                      for lv in c["levels"]],
+            "tests_needed_rows_per_ray": [lv["tests_rows"] / lv["rays"]
+                                          for lv in c["levels"]],
             "tests_run_per_ray": [lv["tests_run"] / lv["rays"]
                                   for lv in c["levels"]],
             "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
@@ -1003,6 +961,8 @@ def main(argv):
             "levels_ms": {lv["batch"]: lv["ms"] for lv in c["levels"]},
             "levels_bound_ms": {lv["batch"]: lv["bound_ms"]
                                 for lv in c["levels"]},
+            "levels_bound_rows_ms": {lv["batch"]: lv["bound_rows_ms"]
+                                     for lv in c["levels"]},
             "main_path_ms": by_level(times, 6)})
     line = json.dumps({"kernels": kernels})
     log(line)

@@ -73,9 +73,12 @@
 // until its own redesign: each thread walks in its own dominant-direction
 // order and gates each supercluster and row for itself; a warp's threads
 // diverge between rows, and every lane of a row is reloaded per thread
-// with __ldg.  Its per-ray row counter is the yardstick of the fused
-// kernels' bound: the tests their inputs need are the rows this walk runs
-// on the same rays, times C.
+// with __ldg.  Its per-ray counters are the yardstick of every BVH
+// kernel's bound: rows_out counts the rows it tests (whole rows, PR 1's
+// yardstick), lanes_out the lanes of the segments among them that the ray
+// enters before its best t so far (the finest gate of an exact walk here:
+// the tests the ray needs).  Counting lanes re-tests each segment box; a
+// launch without lanes_out runs the walk without that work.
 //
 // Built with --fmad=false (no contraction of a*b+c), so each operation
 // rounds on its own, as in the plain PyTorch versions in
@@ -101,7 +104,7 @@ constexpr float kShadowTMax = 1.0f;
 constexpr int kDeadKey = 1 << 30;
 constexpr int kMaxRec = 8;
 
-// The block walk's shapes (ops/cuda_bvh.py block_walk_plan mirrors them).
+// The block walk's shapes (walk_config refuses any other).
 constexpr int kChunk = 128;                   // lanes staged at a time
 constexpr int kChunk4 = kChunk / 4;           // float4s per plane chunk
 constexpr int kChunkFloats = 9 * kChunk;      // one staged chunk
@@ -126,6 +129,7 @@ struct Hit {
   float t, u, v;
   long long slot;  // packed slot of the winning lane, -1 on a miss
   int rows;        // rows that ran Moller-Trumbore (work counter)
+  int lanes;       // lanes of the segments entered before the best t
 };
 
 // 1/x with |x| clamped to +1e-30 (sign dropped, as _safe_inv,
@@ -238,13 +242,24 @@ __device__ __forceinline__ void mt_test(float v0x, float v0y, float v0z,
 // --- the per-ray walk (closest_kernel) -----------------------------------
 
 // One ray against the C lanes of packed row `row`, each lane loaded from
-// global memory; lanes in order, so the first lane keeps a tie.
+// global memory; lanes in order, so the first lane keeps a tie.  kLanes:
+// at the first lane of each segment, count its lanes when the ray enters
+// its box before min(best t so far, limit); every lane is tested either
+// way.
+template <bool kLanes>
 __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
-                                       const Ray& r, Hit& h) {
+                                       const Ray& r, float ix, float iy,
+                                       float iz, bool par, float limit,
+                                       Hit& h) {
   const float* __restrict__ T = b.tri;
   const long long ns = b.ns;
   const long long base = row * b.C;
+  const int LC = b.C / b.S;
   for (int j = 0; j < b.C; ++j) {
+    if (kLanes && j % LC == 0 &&
+        slab_entry(b.seg + 8LL * (row * b.S + j / LC), r, ix, iy, iz, par) <
+            fminf(h.t, limit))
+      h.lanes += LC;
     const long long s = base + j;
     mt_test<true, true>(__ldg(T + s), __ldg(T + ns + s),
                         __ldg(T + 2 * ns + s), __ldg(T + 3 * ns + s),
@@ -256,8 +271,9 @@ __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
 
 // Closest hit below `limit` (exact below it; beyond it the walk may cull,
 // as the TPU kernel's static t-limit, pallas_bvh.py:425-427).
+template <bool kLanes>
 __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
-  Hit h{kBigT, 0.0f, 0.0f, -1, 0};
+  Hit h{kBigT, 0.0f, 0.0f, -1, 0, 0};
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   const bool par = fabsf(r.dx) < kDirTiny || fabsf(r.dy) < kDirTiny ||
                    fabsf(r.dz) < kDirTiny;
@@ -276,7 +292,7 @@ __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
                                 iz, par));
       if (!(m < fminf(h.t, limit))) continue;
       ++h.rows;
-      mt_row(b, row, r, h);
+      mt_row<kLanes>(b, row, r, ix, iy, iz, par, limit, h);
     }
   }
   return h;
@@ -562,22 +578,30 @@ __device__ void walk_window(const Bvh& b, const float* __restrict__ rays,
   }
 }
 
-// Launch configuration of a block-walk kernel: its dynamic shared memory,
-// opted in above the default 48 KB.
+// Launch configuration of a block-walk kernel, and the one check of the
+// shapes it takes: C a multiple of kChunk, S segments dividing C, 1 to
+// kMaxG rows per supercluster, blocks of 32 to kMaxBlock threads in whole
+// warps, 32-bit plane and box offsets, triangle planes 16-byte aligned
+// (cp.async copies 16 B).  Its dynamic shared memory is opted in above
+// the default 48 KB; past the card's limit that opt-in fails.
 template <typename K>
 cudaError_t walk_config(K kernel, const Bvh& b, int block, size_t* smem) {
   if (b.C % kChunk != 0 || b.G < 1 || b.G > kMaxG || b.S < 1 ||
       b.C % b.S != 0 ||
       block % 32 != 0 || block < 32 || block > kMaxBlock ||
       9 * b.ns >= (1LL << 31) ||
-      8LL * b.K1 * b.G * b.S >= (1LL << 31))
+      8LL * b.K1 * b.G * b.S >= (1LL << 31) ||
+      reinterpret_cast<unsigned long long>(b.tri) % 16 != 0 || b.ns % 4 != 0)
     return cudaErrorInvalidValue;
   *smem = sizeof(float) * walk_smem_floats(b.G, b.S, block);
-  if (*smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*smem));
-  return cudaSuccess;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem));
+  // a refused opt-in is also the thread's last error: clear it, so that
+  // the next launch's cudaGetLastError() reports that launch alone
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 // --- shading helpers ------------------------------------------------------
@@ -796,19 +820,22 @@ struct ClosestArgs {
   int* slot_out;    // (R,) packed slot, -1 on a miss; or null (shadow mode)
   float* rec_out;   // (n_rec, R) winning record, 0 on a miss
   int* rows_out;    // (R,) or null: rows that ran Moller-Trumbore
+  int* lanes_out;   // (R,) or null: lanes of the segments entered (kLanes)
 };
 
 // Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel): the per-ray
 // walk, the winning record taken as the spawn epilogue takes it.
+template <bool kLanes>
 __global__ void closest_kernel(ClosestArgs a) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= a.R) return;
   const long long R = a.R;
   const Ray r{a.rays[i], a.rays[R + i], a.rays[2 * R + i],
               a.rays[3 * R + i], a.rays[4 * R + i], a.rays[5 * R + i]};
-  Hit h{kBigT, 0.0f, 0.0f, -1, 0};
-  if (fabsf(r.ox) < kAliveLimit) h = traverse(a.bvh, r, a.limit);
+  Hit h{kBigT, 0.0f, 0.0f, -1, 0, 0};
+  if (fabsf(r.ox) < kAliveLimit) h = traverse<kLanes>(a.bvh, r, a.limit);
   if (a.rows_out) a.rows_out[i] = h.rows;
+  if (kLanes) a.lanes_out[i] = h.lanes;
   a.t_out[i] = h.t;
   if (a.uv_out) {
     a.uv_out[i] = h.u;
@@ -874,16 +901,18 @@ extern "C" int rtx_bvh_closest(
     const float* rays, long long R, const float* tri, const float* seg,
     const float* sc, const int* orders, long long ns, int C, int S, int G,
     int K1, float limit, const float* rec, int n_rec, float* t_out,
-    float* uv_out, int* slot_out, float* rec_out, int* rows_out, int block,
-    void* stream) {
-  if (n_rec < 0 || n_rec > kMaxRec || (n_rec > 0 && (!rec || !rec_out)))
+    float* uv_out, int* slot_out, float* rec_out, int* rows_out,
+    int* lanes_out, int block, void* stream) {
+  if (n_rec < 0 || n_rec > kMaxRec || (n_rec > 0 && (!rec || !rec_out)) ||
+      S < 1 || C % S != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   ClosestArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
                 rays, R, limit, rec, n_rec, t_out, uv_out, slot_out,
-                rec_out, rows_out};
+                rec_out, rows_out, lanes_out};
   const long long grid = (R + block - 1) / block;
-  closest_kernel<<<static_cast<unsigned>(grid), block, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  auto kernel = lanes_out ? closest_kernel<true> : closest_kernel<false>;
+  kernel<<<static_cast<unsigned>(grid), block, 0,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

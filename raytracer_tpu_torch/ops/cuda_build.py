@@ -4,7 +4,10 @@ Each source ``csrc/<name>.cu`` has a plain C interface and compiles with
 nvcc for sm_90a into its own shared library
 ``build/torch_kernels/lib<name>.so``, loaded through ctypes on first use
 (or rebuilt when its source is newer).  `build_all` starts one nvcc per
-source at once, so a cold start pays for the slowest file only.  Built
+source at once, so a cold start pays for the slowest file only.
+`load_from` builds another version of a source (the same C interface)
+beside it, and `use` makes the wrappers launch from that library within
+a block, to time two versions in one process.  Built
 with ``--fmad=false``: no a*b+c is contracted, so each operation rounds
 on its own, as in the plain PyTorch versions beside every kernel.
 
@@ -14,6 +17,7 @@ contiguous, launch errors raised, optional CUDA-event timing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -48,6 +52,13 @@ def _paths(name):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
+def _nvcc_start(src, out, verbose):
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", out, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build_all(names=SOURCES, verbose: bool = False) -> dict:
     """Compile every named source (unconditionally), one nvcc process
     each, all started together.  Returns {name: compiler output};
@@ -55,16 +66,11 @@ def build_all(names=SOURCES, verbose: bool = False) -> dict:
     fails.  Each library is written to a per-process file and renamed
     into place, so a concurrent loader never sees half a file."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in names:
         src, lib = _paths(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
+        procs[name] = (_nvcc_start(src, tmp, verbose), tmp, lib)
     reports, failed = {}, []
     for name, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
@@ -93,6 +99,40 @@ def load(name, setup):
         setup(lib)
         _libs[name] = lib
         return lib
+
+
+def load_from(name, src, setup, verbose: bool = False):
+    """Build `src`, another version of ``csrc/<name>.cu`` with the same C
+    interface, into its own library beside `name`'s and bind it with
+    `setup`; `name`'s own library stays the one the wrappers load.
+    Returns (lib, compiler output)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"lib{name}_from.{os.getpid()}.so")
+    proc = _nvcc_start(os.path.abspath(src), out, verbose)
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{src}: nvcc failed ({proc.returncode}):\n"
+                           f"{report}")
+    lib = ctypes.CDLL(out)
+    setup(lib)
+    return lib, report
+
+
+@contextlib.contextmanager
+def use(name, lib):
+    """Within the block, the wrappers of library `name` launch from
+    `lib` (e.g. one from `load_from`)."""
+    with _lock:
+        before = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before
 
 
 # ctypes argument types: pointer (and stream), int, long long, float
@@ -128,9 +168,12 @@ def event(wrapper):
     return ev
 
 
-def raise_on(code, name):
+def raise_on(code, name, invalid=None):
+    """Raise on a nonzero CUDA error code of `name`'s entry point;
+    `invalid` says what code 1 (cudaErrorInvalidValue) means there."""
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} "
+        why = f": {invalid}" if code == 1 and invalid else ""
+        raise RuntimeError(f"{name}: CUDA error {code}{why} "
                            f"({torch.cuda.get_device_name()})")
 
 

@@ -16,8 +16,9 @@ Three CUDA kernels (``csrc/cuda_bvh.cu``) replace the TPU kernels:
 What bounds them on an H100 and what the design does about it is noted
 at the top of the CUDA source: the two fused kernels walk the BVH per
 block of rays, staging each row the block needs in shared memory
-(`block_walk_plan` checks their shapes), and `bvh_closest` walks per
-ray.  Each wrapper runs the plain version for tensors on the CPU only;
+(`walk_config` there refuses the shapes they do not take), and
+`bvh_closest` walks per ray.  Each wrapper checks its operands' shapes
+on any device, then runs the plain version for tensors on the CPU only;
 for CUDA tensors it launches its kernel or raises.  Each keeps a launch
 count (`bvh_spawn.launches`, `bvh_shadow_shade.launches`,
 `bvh_closest.launches`) that only a kernel launch raises.
@@ -49,12 +50,9 @@ from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 ptr, raise_on)
 
 DEFAULT_RAY_BLOCK = 128      # CUDA threads per block (one ray each)
-
-# The fused kernels' block walk (csrc/cuda_bvh.cu block_walk, walk_window).
-CHUNK = 128                  # triangle lanes staged in shared memory at once
-MAX_GROUP = 32               # rows per supercluster (a 32-bit row mask)
-MAX_RAY_BLOCK = 256          # the kernels' __launch_bounds__
-MAX_DYNAMIC_SMEM = 232_448 - 8192   # H100 per-block limit, less the static
+# what an invalid-value error of a fused kernel means
+WALK_SHAPES = ("a shape the block walk does not take (csrc/cuda_bvh.cu "
+               "walk_config)")
 
 DEAD_ORIGIN = 1.0e35         # sentinel origin of a dead ray
 ALIVE_LIMIT = 1.0e30         # |ox| below this: the ray is alive
@@ -86,7 +84,7 @@ def _setup(lib):
         P, L, L, P, P, P, P, P, P, P, P, L, I, I, I, I, P, P, I, P]
     lib.rtx_bvh_closest.restype = I
     lib.rtx_bvh_closest.argtypes = [
-        P, L, P, P, P, P, L, I, I, I, I, Fl, P, I, P, P, P, P, P, I, P]
+        P, L, P, P, P, P, L, I, I, I, I, Fl, P, I, P, P, P, P, P, P, I, P]
 
 
 def _load():
@@ -117,37 +115,6 @@ class PackedBVH:
     @property
     def num_superclusters(self) -> int:
         return self.sc_aabb.shape[0]
-
-
-def block_walk_plan(bvh: PackedBVH, ray_block: int) -> dict:
-    """Launch plan of the fused kernels' block walk: the chunks of CHUNK
-    lanes each row is staged in, and the dynamic shared memory of one
-    block in bytes (a ring of three chunks of 9 planes, the
-    supercluster box and its G*S segment boxes, and each thread's G*S
-    segment entries; csrc/cuda_bvh.cu walk_smem_floats).  Raises
-    ValueError on a shape the kernels do not take."""
-    C, G, S = bvh.C, bvh.G, bvh.S
-    problems = []
-    if C % CHUNK:
-        problems.append(f"C={C} lanes is not a multiple of {CHUNK}")
-    if S < 1 or C % S:
-        problems.append(f"S={S} segments do not divide C={C} lanes")
-    if not 1 <= G <= MAX_GROUP:
-        problems.append(f"G={G} rows per supercluster is outside "
-                        f"[1, {MAX_GROUP}]")
-    if ray_block % 32 or not 32 <= ray_block <= MAX_RAY_BLOCK:
-        problems.append(f"ray_block={ray_block} is not a multiple of 32 in "
-                        f"[32, {MAX_RAY_BLOCK}]")
-    if 9 * bvh.num_slots >= 2 ** 31 or bvh.seg_aabb.numel() >= 2 ** 31:
-        problems.append(f"{bvh.num_slots} slots overflow 32-bit offsets")
-    if bvh.tri.data_ptr() % 16:
-        problems.append("the triangle planes are not 16-byte aligned")
-    smem = 4 * (3 * 9 * CHUNK + 8 * (1 + G * S) + G * S * ray_block)
-    if smem > MAX_DYNAMIC_SMEM:
-        problems.append(f"{smem} B of shared memory per block")
-    if problems:
-        raise ValueError("BVH block walk: " + "; ".join(problems))
-    return dict(chunks=C // CHUNK, smem_bytes=smem)
 
 
 # --- plain PyTorch versions ---------------------------------------------
@@ -375,6 +342,17 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
     (R*children,) int32 sort keys (2**30 for dead children)."""
     if key_mode not in KEY_MODES:
         raise ValueError(f"unknown key_mode {key_mode!r}")
+    R = rays.shape[1]
+    b = children
+    L = light_pos.shape[0]
+    n_rec = rec.shape[0]
+    if rays.shape[0] != 6 or gauss.shape != (3 * b, R):
+        raise ValueError(f"bvh_spawn: rays {tuple(rays.shape)}, gauss "
+                         f"{tuple(gauss.shape)} for {b} children")
+    if light_pos.shape[1:] != (3,):
+        raise ValueError(f"bvh_spawn: light_pos {tuple(light_pos.shape)}")
+    if rec.shape[1] != bvh.num_slots or not 3 <= n_rec <= 8:
+        raise ValueError(f"bvh_spawn: rec {tuple(rec.shape)}")
     if rays.device.type == "cpu":
         return bvh_spawn_plain(rays, gauss, light_pos, bvh, rec,
                                world_lo=world_lo,
@@ -383,16 +361,6 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
                                key_mode=key_mode)
     check_cuda("bvh_spawn", rays, gauss, light_pos, rec, bvh.tri,
                 bvh.seg_aabb, bvh.sc_aabb, bvh.orders, rows_out)
-    R = rays.shape[1]
-    b = children
-    L = light_pos.shape[0]
-    n_rec = rec.shape[0]
-    if rays.shape[0] != 6 or gauss.shape != (3 * b, R):
-        raise ValueError(f"bvh_spawn: rays {tuple(rays.shape)}, gauss "
-                         f"{tuple(gauss.shape)} for {b} children")
-    if rec.shape[1] != bvh.num_slots or not 3 <= n_rec <= 8:
-        raise ValueError(f"bvh_spawn: rec {tuple(rec.shape)}")
-    block_walk_plan(bvh, ray_block)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     t = torch.empty((R,), **f32)
@@ -411,7 +379,7 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
         *[float(x) for x in world_inv_span], KEY_MODES[key_mode], ptr(t),
         ptr(uv), ptr(rec_out), ptr(shadow), ptr(child), ptr(keys),
         ptr(rows_out), ray_block, cuda_stream(dev))
-    raise_on(code, "bvh_spawn")
+    raise_on(code, "bvh_spawn", WALK_SHAPES)
     counted(bvh_spawn, start, R)
     out = dict(t=t, rec=rec_out, shadow=shadow, children=child, keys=keys)
     if emit_uv:
@@ -434,12 +402,6 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
     optional (L*R,) int32, the ray-triangle tests (lanes) each shadow
     ray's warp ran (kernel only).  Returns (3, L*R) radiance per light
     chunk; the caller sums the L chunks."""
-    if shadow_rays.device.type == "cpu":
-        return bvh_shadow_shade_plain(shadow_rays, normal, color, view,
-                                      light_color, bvh)
-    check_cuda("bvh_shadow_shade", shadow_rays, normal, color, view,
-                light_color, bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders,
-                rows_out)
     NS = shadow_rays.shape[1]
     R = normal.shape[1]
     L = light_color.shape[0]
@@ -449,7 +411,12 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
     for name, t in (("normal", normal), ("color", color), ("view", view)):
         if t.shape != (3, R):
             raise ValueError(f"bvh_shadow_shade: {name} {tuple(t.shape)}")
-    block_walk_plan(bvh, ray_block)
+    if shadow_rays.device.type == "cpu":
+        return bvh_shadow_shade_plain(shadow_rays, normal, color, view,
+                                      light_color, bvh)
+    check_cuda("bvh_shadow_shade", shadow_rays, normal, color, view,
+                light_color, bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders,
+                rows_out)
     out = torch.empty((3, NS), dtype=torch.float32, device=normal.device)
     lib = _load()
     start = event(bvh_shadow_shade)
@@ -459,7 +426,7 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
         ptr(bvh.sc_aabb), ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S,
         bvh.G, bvh.num_superclusters, ptr(out), ptr(rows_out), ray_block,
         cuda_stream(normal.device))
-    raise_on(code, "bvh_shadow_shade")
+    raise_on(code, "bvh_shadow_shade", WALK_SHAPES)
     counted(bvh_shadow_shade, start, NS)
     return out
 
@@ -470,7 +437,8 @@ bvh_shadow_shade.events = None
 
 def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
                 shadow: bool = False, exact_order=None, stream=False,
-                ray_block: int = DEFAULT_RAY_BLOCK, rows_out=None):
+                ray_block: int = DEFAULT_RAY_BLOCK, rows_out=None,
+                lanes_out=None):
     """Closest hit of every ray (replaces pallas_bvh_closest,
     raytracer_tpu/ops/pallas_bvh.py:411).
 
@@ -482,24 +450,27 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
     walk-order and HBM-streaming variants) are accepted for parity and
     change nothing: one walk serves all of them.
     rows_out: optional (R,) int32 that receives, per ray, the number of
-    rows that ran Moller-Trumbore (kernel only; the work counter, and
-    the fused kernels' "tests needed": this kernel walks per ray).
+    rows that ran Moller-Trumbore (kernel only; the work counter).
+    lanes_out: optional (R,) int32, per ray, the lanes of the segments
+    of those rows that the ray enters before its best t so far (kernel
+    only): the tests the ray needs, the yardstick of every BVH kernel's
+    bound.  Counting lanes costs the walk a second slab test per segment.
 
     Returns a dict: t (R,) [BIG_T on a miss]; unless shadow: u, v (R,)
     [0 on a miss], slot (R,) int32 packed slot [-1 on a miss], and rec
     (n_rec, R) [0 on a miss] when record planes were given."""
     if shadow:
         rec = None
-    if rays.device.type == "cpu":
-        return bvh_closest_plain(rays, bvh, rec, shadow=shadow)
-    check_cuda("bvh_closest", rays, rec, bvh.tri, bvh.seg_aabb, bvh.sc_aabb,
-               bvh.orders, rows_out)
     R = rays.shape[1]
     if rays.shape[0] != 6:
         raise ValueError(f"bvh_closest: rays {tuple(rays.shape)}")
     n_rec = 0 if rec is None else rec.shape[0]
     if rec is not None and (rec.shape[1] != bvh.num_slots or n_rec > 8):
         raise ValueError(f"bvh_closest: rec {tuple(rec.shape)}")
+    if rays.device.type == "cpu":
+        return bvh_closest_plain(rays, bvh, rec, shadow=shadow)
+    check_cuda("bvh_closest", rays, rec, bvh.tri, bvh.seg_aabb, bvh.sc_aabb,
+               bvh.orders, rows_out, lanes_out)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     t = torch.empty((R,), **f32)
@@ -514,7 +485,8 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
         ptr(rays), R, ptr(bvh.tri), ptr(bvh.seg_aabb), ptr(bvh.sc_aabb),
         ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
         bvh.num_superclusters, limit, ptr(rec), n_rec, ptr(t), ptr(uv),
-        ptr(slot), ptr(rec_out), ptr(rows_out), ray_block, cuda_stream(dev))
+        ptr(slot), ptr(rec_out), ptr(rows_out), ptr(lanes_out), ray_block,
+        cuda_stream(dev))
     raise_on(code, "bvh_closest")
     counted(bvh_closest, start, R)
     if shadow:

@@ -257,7 +257,6 @@ def test_fused_kernels_stage_every_row_width(card, tpl):
     tris, o, d = _random()
     isect = _fused(card, tris, tpl=tpl)
     assert isect.packed.C == tpl
-    assert cuda_bvh.block_walk_plan(isect.packed, 128)["chunks"] == tpl // 128
     _fused_check(card, isect, o, d, b=1)
 
 
@@ -311,3 +310,81 @@ def test_shadow_shade_window_edges(card):
                                                             isect.packed))
     lit = (rad != 0).any(0).cpu().numpy()
     np.testing.assert_array_equal(lit, [True, False, False, True, True])
+
+
+def _bare(card, C=256, G=8, S=4, K1=2, offset=0):
+    """A BVH of zeros on the card with the given shape; `offset` floats
+    shift the triangle planes off 16-byte alignment."""
+    NL = K1 * G
+    tri = torch.zeros(9 * NL * C + offset, device=card)[offset:]
+    return cuda_bvh.PackedBVH(
+        tri=tri.view(9, NL * C),
+        seg_aabb=torch.zeros((NL * S, 8), device=card),
+        sc_aabb=torch.zeros((K1, 8), device=card),
+        orders=torch.zeros((6, K1), dtype=torch.int32, device=card),
+        C=C, S=S, G=G)
+
+
+@pytest.mark.parametrize("kw,block", [
+    (dict(C=192), 128),          # C not a multiple of the 128-lane chunk
+    (dict(G=33), 128),           # more rows than a 32-bit row mask
+    (dict(S=3), 128),            # segments that do not divide C
+    (dict(), 100),               # a block of partial warps
+    (dict(), 512),               # past __launch_bounds__
+    (dict(offset=1), 128),       # planes cp.async cannot copy
+    (dict(S=256), 256),          # more shared memory than a block has
+])
+def test_fused_kernels_raise_on_shapes_they_do_not_take(card, kw, block):
+    """The fused wrappers raise on every shape the block walk refuses
+    (walk_config) and count no launch; the next launch still works."""
+    bvh = _bare(card, **kw)
+    R = 64
+    rays = torch.zeros((6, R), device=card)
+    before = (cuda_bvh.bvh_spawn.launches, cuda_bvh.bvh_shadow_shade.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_bvh.bvh_spawn(rays, torch.zeros((0, R), device=card),
+                           torch.zeros((1, 3), device=card), bvh,
+                           torch.zeros((6, bvh.num_slots), device=card),
+                           world_lo=(0.0,) * 3, world_inv_span=(1.0,) * 3,
+                           children=0, emit_uv=False, ray_block=block)
+    planes = torch.zeros((3, R), device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_bvh.bvh_shadow_shade(rays, planes, planes, planes,
+                                  torch.zeros((1, 3), device=card), bvh,
+                                  ray_block=block)
+    assert (cuda_bvh.bvh_spawn.launches,
+            cuda_bvh.bvh_shadow_shade.launches) == before
+    tris, o, d = _random(n_rays=512)
+    _fused_check(card, _fused(card, tris), o, d, b=0)
+
+
+@pytest.mark.parametrize("seg", [1, 4])
+def test_closest_lanes_counter(card, seg):
+    """bvh_closest's lanes_out counts, within the rows the per-ray walk
+    tests (rows_out), the lanes of the segments a ray enters before its
+    best t: a row of one segment counts whole; else each tested row
+    counts between one segment and all of its lanes, whole segments, and
+    some segments are skipped.  Counting changes no output."""
+    tris, o, d = _random()
+    isect = BVHIntersector(_Buffers(tris), seg=seg, device=card)
+    C, S = isect.packed.C, isect.packed.S
+    assert S == seg
+    rays = rays_from(o, d).to(card)
+    for kw in (dict(), dict(t_limit=1.0, shadow=True)):
+        rows = torch.full((rays.shape[1],), -1, dtype=torch.int32,
+                          device=card)
+        lanes = torch.full_like(rows, -1)
+        got = cuda_bvh.bvh_closest(rays, isect.packed, rows_out=rows,
+                                   lanes_out=lanes, **kw)
+        want = cuda_bvh.bvh_closest(rays, isect.packed, **kw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        dead = (rays[0].abs() >= 1e30)
+        assert int(rows[dead].sum()) == 0 and int(lanes[dead].sum()) == 0
+        if S == 1:
+            assert torch.equal(lanes, rows * C)
+        else:
+            assert bool((lanes % (C // S) == 0).all())
+            assert bool((lanes >= rows * (C // S)).all())
+            assert bool((lanes <= rows * C).all())
+            assert int(lanes.sum()) < int(rows.sum()) * C

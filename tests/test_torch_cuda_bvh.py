@@ -421,40 +421,86 @@ def test_bvh_closest_axis_parallel_rays():
     assert got[4] == BIG_T and not np.isnan(got).any()
 
 
-# --- the fused kernels' launch plan (block walk) ----------------------------
+# --- the wrappers' operand checks (any device) -----------------------------
 
 
-def _packed(C=256, G=8, S=4, K1=2, offset=0):
+def _packed(C=128, G=8, S=4, K1=1):
     NL = K1 * G
-    tri = torch.zeros(9 * NL * C + offset)[offset:].view(9, NL * C)
     return cuda_bvh.PackedBVH(
-        tri=tri, seg_aabb=torch.zeros((NL * S, 8)),
+        tri=torch.zeros((9, NL * C)), seg_aabb=torch.zeros((NL * S, 8)),
         sc_aabb=torch.zeros((K1, 8)),
         orders=torch.zeros((6, K1), dtype=torch.int32), C=C, S=S, G=G)
 
 
-@pytest.mark.parametrize("C,G,S,block", [(128, 8, 4, 128), (256, 8, 4, 128),
-                                         (384, 8, 4, 256), (256, 32, 2, 32)])
-def test_block_walk_plan_stages_chunks_of_128_lanes(C, G, S, block):
-    """Any C that is a multiple of 128 runs in C/128 staged chunks; the
-    shared memory is a ring of three 9-plane chunks, the supercluster
-    and segment boxes and G*S segment entries per thread."""
-    plan = cuda_bvh.block_walk_plan(_packed(C, G, S), block)
-    assert plan["chunks"] == C // 128
-    assert plan["smem_bytes"] == 4 * (3 * 9 * 128 + 8 * (1 + G * S)
-                                      + G * S * block)
+def _spawn_operands(R=4, b=1, L=1, n_rec=6):
+    bvh = _packed()
+    return dict(rays=torch.zeros((6, R)), gauss=torch.zeros((3 * b, R)),
+                light_pos=torch.zeros((L, 3)), bvh=bvh,
+                rec=torch.zeros((n_rec, bvh.num_slots)), children=b)
 
 
-@pytest.mark.parametrize("kw,block,what", [
-    (dict(C=192), 128, "multiple of 128"),
-    (dict(G=33), 128, "rows per supercluster"),
-    (dict(), 100, "ray_block"),
-    (dict(), 512, "ray_block"),
-    (dict(offset=1), 128, "16-byte aligned"),
-    (dict(S=3), 128, "segments do not divide"),
-    (dict(S=256), 256, "shared memory"),
+def _shade_operands(R=4, L=2):
+    return dict(shadow_rays=torch.zeros((6, L * R)),
+                normal=torch.zeros((3, R)), color=torch.zeros((3, R)),
+                view=torch.zeros((3, R)), light_color=torch.zeros((L, 3)),
+                bvh=_packed())
+
+
+def _spawn(**kw):
+    ops = _spawn_operands()
+    ops.update(kw)
+    return cuda_bvh.bvh_spawn(world_lo=(0.0,) * 3, world_inv_span=(1.0,) * 3,
+                              emit_uv=False, **ops)
+
+
+def _shade(**kw):
+    ops = _shade_operands()
+    ops.update(kw)
+    return cuda_bvh.bvh_shadow_shade(**ops)
+
+
+def _closest(**kw):
+    bvh = _packed()
+    ops = dict(rays=torch.zeros((6, 4)), bvh=bvh)
+    ops.update(kw)
+    if ops.get("rec") == "wide":
+        ops["rec"] = torch.zeros((9, bvh.num_slots))
+    elif ops.get("rec") == "short":
+        ops["rec"] = torch.zeros((6, bvh.num_slots - 1))
+    return cuda_bvh.bvh_closest(**ops)
+
+
+@pytest.mark.parametrize("call,kw,what", [
+    (_spawn, dict(rays=torch.zeros((5, 4))), "rays"),
+    (_spawn, dict(gauss=torch.zeros((3, 5))), "gauss"),
+    (_spawn, dict(gauss=torch.zeros((6, 4))), "gauss"),
+    (_spawn, dict(light_pos=torch.zeros((1, 4))), "light_pos"),
+    (_spawn, dict(rec=torch.zeros((2, 1024))), "rec"),
+    (_spawn, dict(rec=torch.zeros((9, 1024))), "rec"),
+    (_spawn, dict(rec=torch.zeros((6, 1023))), "rec"),
+    (_spawn, dict(key_mode="dir7"), "key_mode"),
+    (_shade, dict(shadow_rays=torch.zeros((6, 7))), "shadow rays"),
+    (_shade, dict(shadow_rays=torch.zeros((5, 8))), "shadow rays"),
+    (_shade, dict(color=torch.zeros((3, 5))), "color"),
+    (_shade, dict(view=torch.zeros((4, 4))), "view"),
+    (_closest, dict(rays=torch.zeros((3, 4))), "rays"),
+    (_closest, dict(rec="wide"), "rec"),
+    (_closest, dict(rec="short"), "rec"),
 ])
-def test_block_walk_plan_raises_on_shapes_the_kernels_do_not_take(kw, block,
-                                                                  what):
+def test_wrappers_raise_on_mismatched_operands(call, kw, what):
+    """Each wrapper checks its operands' shapes before it picks a device,
+    so a CPU call raises where a kernel launch would."""
     with pytest.raises(ValueError, match=what):
-        cuda_bvh.block_walk_plan(_packed(**kw), block)
+        call(**kw)
+
+
+@pytest.mark.parametrize("call", [_spawn, _shade, _closest])
+def test_wrappers_take_matching_operands_on_the_cpu(call):
+    """The same operands with matching shapes run the plain versions:
+    every ray here is a miss (zero-area triangles)."""
+    out = call()
+    t = out["t"] if isinstance(out, dict) else None
+    if t is not None:
+        assert bool((t == BIG_T).all())
+    else:
+        assert out.shape == (3, 8) and bool(torch.isfinite(out).all())
