@@ -19,19 +19,20 @@ Phases (any failure raises and exits non-zero):
    batches of levels 0 (1,048,576 rays) and 1 (2,097,152 rays, dead rays
    sorted last) of one 1-spp trace_radiance wavefront of thai2 at
    1024x1024; bvh_closest also on level-0 slices with 6 and 7 record
-   planes and with a t limit, both on a slice of axis-parallel rays.
-   Each kernel and plain version is timed at each shape.  The bound of
-   every BVH kernel counts the ray-triangle tests its inputs need: the
-   lanes of the segments that the per-ray walk of bvh_closest enters
-   before each ray's best t, on the same rays at the same t limit (BIG_T
-   for spawn, 1.0 in shadow mode for shadow-shade), so a kernel that
-   tests more does not raise its own bound.  Beside it stand the bound
-   from that walk's whole rows (PR 1's yardstick) and, for the fused
-   kernels, the tests they ran themselves (their own counters); the
-   cluster kernel's bound counts the clusters it tests.  Then whole 64x64
-   renders on the card against the plain path on the CPU, both fed the
-   same numpy-made draws: the fused path (spp 2) and accel="cluster"
-   (spp 1);
+   planes and with a t limit, both on a slice of axis-parallel rays, and
+   cluster_closest on a tpl-256 grid (C = 256) at the level-1 closest
+   batch.  Each kernel and plain version is timed at each shape.  The
+   bound of every kernel counts the ray-triangle tests its inputs need,
+   from a per-ray counting walk on the same rays at the same t limit
+   (BIG_T, or 1.0 for shadow rays), so a kernel that tests more does not
+   raise its own bound: for the BVH kernels the lanes of the segments
+   that bvh_tests_needed's walk enters before each ray's best t, for the
+   cluster kernel C lanes per cluster that cluster_tests_needed's walk
+   enters.  Beside it stand the bound from the BVH walk's whole rows (the
+   first slice's yardstick) and the tests each kernel ran itself (its own
+   counter, tests_out).  Then whole 64x64 renders on the card against the
+   plain path on the CPU, both fed the same numpy-made draws: the fused
+   path (spp 2) and accel="cluster" (spp 1);
 4. the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. the fused BVH render: thai2 at 1024x1024, render(16) (two pooled
@@ -48,8 +49,9 @@ Phases (any failure raises and exits non-zero):
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
-raytracer_tpu_torch/scripts/ab_cuda_bvh.py times another version of
-csrc/cuda_bvh.cu against this tree's on the same inputs.
+raytracer_tpu_torch/scripts/ab_kernels.py times other versions of
+csrc/cuda_bvh.cu and csrc/cuda_cluster.cu against this tree's on the
+same inputs.
 
 Tolerance of the kernel checks: the kernels are built with --fmad=false,
 so they round like the plain versions op for op, and a live ray may
@@ -267,6 +269,31 @@ def bound(nbytes_moved, tests):
                                  else "operations")
 
 
+def bvh_needed(rays, bvh, limit):
+    """(tests needed, whole-row tests) of `rays` on the BVH at `limit`,
+    from the per-ray counting walk: the lanes of the segments it enters
+    before each ray's best t, and its rows x C."""
+    from raytracer_tpu_torch.ops import cuda_bvh
+    n = cuda_bvh.bvh_tests_needed(rays, bvh, t_limit=limit)
+    return int(n["lanes"].sum()), int(n["rows"].sum()) * bvh.C
+
+
+def cluster_needed(rays, grid, limit):
+    """(tests needed, the same) of `rays` on the cluster grid at `limit`:
+    C lanes per cluster the per-ray counting walk enters."""
+    from raytracer_tpu_torch.ops import cuda_cluster
+    n = cuda_cluster.cluster_tests_needed(rays, grid, t_limit=limit)
+    tests = int(n["clusters"].sum()) * grid.C
+    return tests, tests
+
+
+def f32_share(tests_run, ms):
+    """The share of the card's f32 instruction rate that `tests_run`
+    Moller-Trumbore tests in `ms` milliseconds take."""
+    from raytracer_tpu_torch.ops.cuda_bvh import MT_OPS
+    return tests_run * MT_OPS / (ms * 1e-3) / H100_F32_OPS
+
+
 def spawn_kw(isect):
     return dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
                 emit_uv=False, key_mode="dir6")
@@ -296,7 +323,8 @@ def wavefront_levels(rt, pool, gen):
         run = torch.zeros((R,), dtype=torch.int32, device=dev)
         got = cuda_bvh.bvh_spawn(rays, g, rt.scene_arrays.light_pos,
                                  isect.packed, isect.shade_planes,
-                                 children=b, rows_out=run, **spawn_kw(isect))
+                                 children=b, tests_out=run,
+                                 **spawn_kw(isect))
         yield level, b, rays, g, got, run
         if b:
             _, p = torch.sort(got["keys"], stable=True)
@@ -343,25 +371,16 @@ def phase_kernels(rt, quick, rec):
         sh_args = shade_args(got, rays, lc1)
         run_sh = torch.zeros((got["shadow"].shape[1],), dtype=torch.int32,
                              device=dev)
-        sk = cuda_bvh.bvh_shadow_shade(*sh_args, bvh, rows_out=run_sh)
+        sk = cuda_bvh.bvh_shadow_shade(*sh_args, bvh, tests_out=run_sh)
         sp, ps_ms = timed(lambda: cuda_bvh.bvh_shadow_shade_plain(*sh_args,
                                                                   bvh))
         res["shadow_shade"]["err"] = max(res["shadow_shade"]["err"],
                                          check_shade(what, sk, sp, sh_args[0]))
         del sk, sp
-        # the tests needed: the per-ray walk (bvh_closest) on the same
-        # rays at the same t limit counts its rows and, within them, the
-        # lanes of the segments each ray enters before its best t
-        need = {}
-        for name, r, kws in (("spawn", rays, dict(t_limit=BIG_T)),
-                             ("shadow_shade", sh_args[0],
-                              dict(t_limit=1.0, shadow=True))):
-            rows = torch.zeros((r.shape[1],), dtype=torch.int32, device=dev)
-            lanes = torch.zeros_like(rows)
-            cuda_bvh.bvh_closest(r, bvh, rows_out=rows, lanes_out=lanes,
-                                 **kws)
-            need[name] = (int(lanes.sum()), int(rows.sum()) * bvh.C)
-            del rows, lanes
+        # the tests needed: the per-ray counting walk on the same rays at
+        # the same t limit
+        need = {"spawn": bvh_needed(rays, bvh, BIG_T),
+                "shadow_shade": bvh_needed(sh_args[0], bvh, 1.0)}
         k_ms = cuda_ms(lambda: cuda_bvh.bvh_spawn(
             rays, g, lp1, bvh, planes, children=b, **kw), reps)
         ks_ms = cuda_ms(lambda: cuda_bvh.bvh_shadow_shade(*sh_args, bvh),
@@ -641,55 +660,56 @@ def phase_closest_kernels(rt, quick, rec):
         f"cluster grid K={grid.num_clusters} C={grid.C}")
     batches = closest_batches(rt, isect_b)
     reps = 2 if quick else 5
-    # each kernel's call (rows_out: rows or clusters tested; lanes_out:
-    # lanes of the segments entered, the BVH walk's tests needed)
+    # each kernel's call (tests: its per-ray tests run), plain version,
+    # counting walk, triangle planes and structure bytes
     kernels = {
         "bvh_closest": (
-            lambda r, lim, sh, rows=None, lanes=None: cuda_bvh.bvh_closest(
-                r, bvh, t_limit=lim, shadow=sh, rows_out=rows,
-                lanes_out=lanes),
+            lambda r, lim, sh, tests=None: cuda_bvh.bvh_closest(
+                r, bvh, t_limit=lim, shadow=sh, tests_out=tests),
             lambda r, sh: cuda_bvh.bvh_closest_plain(r, bvh, shadow=sh),
-            bvh.tri, bvh.C,
+            lambda r, lim: bvh_needed(r, bvh, lim), bvh.tri,
             bvh.num_slots * 36 + (bvh.seg_aabb.numel() + bvh.sc_aabb.numel()
                                   + bvh.orders.numel()) * 4),
         "cluster_closest": (
-            lambda r, lim, sh, rows=None, lanes=None:
-                cuda_cluster.cluster_closest(r, grid, t_limit=lim,
-                                             rows_out=rows),
+            lambda r, lim, sh, tests=None: cuda_cluster.cluster_closest(
+                r, grid, t_limit=lim, tests_out=tests),
             lambda r, sh: cuda_cluster.cluster_closest_plain(r, grid),
-            grid.tri, grid.C,
+            lambda r, lim: cluster_needed(r, grid, lim), grid.tri,
             grid.num_slots * 36 + (grid.aabb.numel()
                                    + grid.orders.numel()) * 4)}
     res = {k: {"err": 0.0, "levels": []} for k in kernels}
-    for name, (kern, plain, tri, C, struct_bytes) in kernels.items():
+    for name, (kern, plain, needed, tri, struct_bytes) in kernels.items():
         for what, rays in batches:
             shadow = what.endswith("shadow")
             lim = 1.0 if shadow else BIG_T
             R = rays.shape[1]
-            rows = torch.zeros((R,), dtype=torch.int32, device=rays.device)
-            lanes = torch.zeros_like(rows) if name == "bvh_closest" else None
-            got = kern(rays, lim, shadow, rows, lanes)
+            run = torch.zeros((R,), dtype=torch.int32, device=rays.device)
+            got = kern(rays, lim, shadow, run)
             want, p_ms = timed(lambda: plain(rays, shadow))
             res[name]["err"] = max(res[name]["err"], check_closest(
                 f"{name} {what} ({R} rays)", got, want, rays, tri, lim,
                 shadow))
+            del got, want
             k_ms = cuda_ms(lambda: kern(rays, lim, shadow), reps)
             by = nbytes(rays) + struct_bytes + (4 if shadow else 16) * R
-            tests_rows = int(rows.sum()) * C
-            tests = tests_rows if lanes is None else int(lanes.sum())
+            tests, tests_rows = needed(rays, lim)
+            tests_run = int(run.sum())
             b_ms, b_by = bound(by, tests)
             rb_ms, _ = bound(by, tests_rows)
+            rate = f32_share(tests_run, k_ms)
             res[name]["levels"].append(dict(
                 batch=what, rays=R, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, bound_rows_ms=rb_ms, bytes=by,
                 mt_ops=tests * cuda_bvh.MT_OPS, tests=tests,
-                tests_rows=tests_rows))
-            log(f"{name} {what} ({R} rays): kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.1f} ms, bound {b_ms:.6f} ms ({by} B, "
-                f"{tests * cuda_bvh.MT_OPS} MT ops), row bound "
-                f"{rb_ms:.6f} ms; tests/ray needed {tests / R:.2f}, run "
-                f"{tests_rows / R:.2f}")
-            del got, want
+                tests_rows=tests_rows, tests_run=tests_run, f32_share=rate))
+            log(f"{name} {what} ({R} rays): kernel {k_ms:.4f} ms "
+                f"({100 * b_ms / k_ms:.1f} % of bound), plain {p_ms:.1f} ms, "
+                f"bound {b_ms:.6f} ms ({by} B, {tests * cuda_bvh.MT_OPS} MT "
+                f"ops), row bound {rb_ms:.6f} ms; tests/ray needed "
+                f"{tests / R:.2f} (rows: {tests_rows / R:.2f}), run "
+                f"{tests_run / R:.2f} (x{tests_run / max(tests, 1):.3f}); "
+                f"tests run at {100 * rate:.1f} % of the f32 rate")
+            del run
         # the kernels line reports the largest shape: level 1 closest
         res[name].update(res[name]["levels"][2])
 
@@ -715,13 +735,25 @@ def phase_closest_kernels(rt, quick, rec):
         f"bvh_closest level 0 slice, t_limit {lim:.4f} ({n_slice} rays)",
         got, want, sl, bvh.tri, lim, False))
     ax = axis_parallel_rays(grid, n_slice, seed=4)
-    for name, (kern, plain, tri, _, _) in kernels.items():
+    for name, (kern, plain, _, tri, _) in kernels.items():
         for shadow in (False, True):
             lim = 1.0 if shadow else BIG_T
             res[name]["err"] = max(res[name]["err"], check_closest(
                 f"{name} axis-parallel slice{' shadow' if shadow else ''} "
                 f"({n_slice} rays)", kern(ax, lim, shadow), plain(ax, shadow),
                 ax, tri, lim, shadow))
+    # the cluster kernel at C = 256 lanes a cluster (two staged chunks)
+    grid256 = rtx.make_intersector("cluster", rt.scene_buffers,
+                                   triangles_per_leaf=256).packed
+    assert grid256.C == 256, grid256.C
+    what, rays = batches[2]
+    res["cluster_closest"]["err"] = max(
+        res["cluster_closest"]["err"], check_closest(
+            f"cluster_closest C=256 (K={grid256.num_clusters}) {what} "
+            f"({rays.shape[1]} rays)",
+            cuda_cluster.cluster_closest(rays, grid256),
+            cuda_cluster.cluster_closest_plain(rays, grid256), rays,
+            grid256.tri, BIG_T, False))
     rec["closest_checks"] = res
     return res
 
@@ -963,6 +995,13 @@ def main(argv):
                                 for lv in c["levels"]},
             "levels_bound_rows_ms": {lv["batch"]: lv["bound_rows_ms"]
                                      for lv in c["levels"]},
+            "tests_needed_per_ray": {lv["batch"]: lv["tests"] / lv["rays"]
+                                     for lv in c["levels"]},
+            "tests_run_per_ray": {lv["batch"]: lv["tests_run"] / lv["rays"]
+                                  for lv in c["levels"]},
+            "tests_run_over_needed": {
+                lv["batch"]: lv["tests_run"] / max(lv["tests"], 1)
+                for lv in c["levels"]},
             "main_path_ms": by_level(times, 6)})
     line = json.dumps({"kernels": kernels})
     log(line)

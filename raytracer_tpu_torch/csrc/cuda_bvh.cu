@@ -21,9 +21,10 @@
 // rtx_bvh_closest is the generic closest hit of the composable wavefront
 // (BVHIntersector.query/shadow): t, u, v and the packed slot, or t only
 // in shadow mode, plus the winning triangle's record values when record
-// planes are given; its t limit is a runtime argument (static on the
-// TPU).  The TPU kernel's exact_order and stream variants pick the walk
-// order and the staging only; this kernel has one form for all of them.
+// planes are given (pallas_bvh.py:361-405); its t limit is a runtime
+// argument (static on the TPU).  The TPU kernel's exact_order and stream
+// variants pick the walk order and the staging only; this kernel has one
+// form for all of them.
 //
 // What bounds them on an H100: the Moller-Trumbore arithmetic, 54 f32
 // operations per ray-triangle test and hundreds of tests per bounce ray on
@@ -69,16 +70,25 @@
 // tie across rows.  Each kernel counts, per ray, the tests its warp ran
 // (tests_out).
 //
-// rtx_bvh_closest keeps the per-ray walk, one thread per ray (traverse),
-// until its own redesign: each thread walks in its own dominant-direction
-// order and gates each supercluster and row for itself; a warp's threads
-// diverge between rows, and every lane of a row is reloaded per thread
-// with __ldg.  Its per-ray counters are the yardstick of every BVH
-// kernel's bound: rows_out counts the rows it tests (whole rows, PR 1's
-// yardstick), lanes_out the lanes of the segments among them that the ray
-// enters before its best t so far (the finest gate of an exact walk here:
-// the tests the ray needs).  Counting lanes re-tests each segment box; a
-// launch without lanes_out runs the walk without that work.
+// rtx_bvh_closest runs the same gates and tests with each warp on its own
+// (warp_walk): its order from the warp's summed live directions, the boxes
+// read by the whole warp at once, and each chunk it needs staged into the
+// warp's own shared-memory buffer; its window is one batch of B rays.  No
+// warp then waits at a barrier for a block-mate that needs more segments,
+// and no block holds its resources while its slowest warp walks three more
+// batches: at the composable wavefront's batches (1-2 M rays) the block
+// walk with 4-batch windows ran 1.3-1.4 times as long (PERF.md).
+//
+// rtx_bvh_tests_needed keeps the per-ray walk of the first versions
+// (traverse), one thread per ray, as a counting entry that no timed path
+// runs: each thread walks in its own dominant-direction order and gates
+// each supercluster and row for itself, every lane of a row loaded per
+// thread with __ldg.  Its per-ray counters are the yardstick of every BVH
+// kernel's bound, fixed whatever the timed kernels waste: rows_out counts
+// the rows it tests (whole rows, the first slice's yardstick), lanes_out
+// the lanes of the segments among them that the ray enters before its
+// best t so far (the finest gate of an exact walk here: the tests the ray
+// needs).
 //
 // Built with --fmad=false (no contraction of a*b+c), so each operation
 // rounds on its own, as in the plain PyTorch versions in
@@ -110,7 +120,7 @@ constexpr int kChunk4 = kChunk / 4;           // float4s per plane chunk
 constexpr int kChunkFloats = 9 * kChunk;      // one staged chunk
 constexpr int kMaxG = 32;                     // rows per supercluster mask
 constexpr int kMaxBlock = 256;                // threads (rays) per block
-constexpr int kBatches = 4;                   // batches per window of rays
+constexpr int kBatches = 4;                   // batches per block-walk window
 
 struct Bvh {
   const float* __restrict__ tri;   // (9, ns): v0 xyz, e1 xyz, e2 xyz planes
@@ -128,7 +138,7 @@ struct Ray {
 struct Hit {
   float t, u, v;
   long long slot;  // packed slot of the winning lane, -1 on a miss
-  int rows;        // rows that ran Moller-Trumbore (work counter)
+  int rows;        // rows that ran Moller-Trumbore
   int lanes;       // lanes of the segments entered before the best t
 };
 
@@ -239,14 +249,12 @@ __device__ __forceinline__ void mt_test(float v0x, float v0y, float v0z,
   }
 }
 
-// --- the per-ray walk (closest_kernel) -----------------------------------
+// --- the per-ray walk (needed_kernel: the bound's yardstick) -------------
 
 // One ray against the C lanes of packed row `row`, each lane loaded from
-// global memory; lanes in order, so the first lane keeps a tie.  kLanes:
-// at the first lane of each segment, count its lanes when the ray enters
-// its box before min(best t so far, limit); every lane is tested either
-// way.
-template <bool kLanes>
+// global memory; lanes in order, so the first lane keeps a tie.  At the
+// first lane of each segment, count its lanes when the ray enters its box
+// before min(best t so far, limit); every lane is tested either way.
 __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
                                        const Ray& r, float ix, float iy,
                                        float iz, bool par, float limit,
@@ -256,7 +264,7 @@ __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
   const long long base = row * b.C;
   const int LC = b.C / b.S;
   for (int j = 0; j < b.C; ++j) {
-    if (kLanes && j % LC == 0 &&
+    if (j % LC == 0 &&
         slab_entry(b.seg + 8LL * (row * b.S + j / LC), r, ix, iy, iz, par) <
             fminf(h.t, limit))
       h.lanes += LC;
@@ -271,7 +279,6 @@ __device__ __forceinline__ void mt_row(const Bvh& b, long long row,
 
 // Closest hit below `limit` (exact below it; beyond it the walk may cull,
 // as the TPU kernel's static t-limit, pallas_bvh.py:425-427).
-template <bool kLanes>
 __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
   Hit h{kBigT, 0.0f, 0.0f, -1, 0, 0};
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
@@ -292,13 +299,13 @@ __device__ Hit traverse(const Bvh& b, const Ray& r, float limit) {
                                 iz, par));
       if (!(m < fminf(h.t, limit))) continue;
       ++h.rows;
-      mt_row<kLanes>(b, row, r, ix, iy, iz, par, limit, h);
+      mt_row(b, row, r, ix, iy, iz, par, limit, h);
     }
   }
   return h;
 }
 
-// --- the block walk (spawn_kernel, shadow_shade_kernel) ------------------
+// --- the block walk (spawn_kernel, shadow_shade_kernel, closest_kernel) ---
 
 struct BlockHit {
   float t, u, v;
@@ -326,6 +333,10 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Bits [lo, hi) of a 32-bit mask (0 <= lo < hi <= 32).
@@ -372,10 +383,11 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
 
 // Closest hit of every ray of the block below `limit` (exact below it).
 // Every thread of the block calls it, with a dead ray past the live ones:
-// it holds barriers.  A dead ray gets t = BIG_T, slot -1.
+// it holds barriers.  A dead ray gets t = BIG_T, slot -1.  Inlined into
+// each kernel, also where two kernels share one instance.
 template <bool kUV, bool kSlot>
-__device__ BlockHit block_walk(const Bvh& b, const Ray& r, bool alive,
-                               float limit) {
+__device__ __forceinline__ BlockHit block_walk(const Bvh& b, const Ray& r,
+                                               bool alive, float limit) {
   extern __shared__ float4 smem4[];
   __shared__ unsigned mask_sm[2];
   __shared__ float sum_sm[kMaxBlock / 32][3];
@@ -518,40 +530,128 @@ __device__ BlockHit block_walk(const Bvh& b, const Ray& r, bool alive,
   return h;
 }
 
-// A window of kBatches * blockDim consecutive rays per block: its live
-// rays are packed to the front in their order (a stable partition) and
-// walked in batches of blockDim, so dead rays scattered among live ones
-// (shadow rays of misses and back faces) idle no lane; a window with no
-// live ray walks nothing.  `epi(i, ray, alive, hit)` writes ray i's
-// outputs; every ray of the window gets exactly one call.
-template <bool kUV, bool kSlot, typename Epilogue>
+// Dynamic shared memory of a warp walk, in floats: one staged chunk for
+// each warp of the block.
+constexpr int warp_smem_floats(int block) { return block / 32 * kChunkFloats; }
+
+// The block walk's gates and tests, walked by each warp on its own (no
+// block barrier): its order from the warp's summed live directions, the
+// supercluster and segment boxes read by the whole warp at once, and each
+// chunk that one of its rays still needs staged into the warp's own
+// buffer (the float4 groups of the needed segments) and tested from
+// broadcasts.  A warp then waits for no block-mate that needs more
+// segments.  Every thread of the warp calls it, with a dead ray where a
+// lane has no live one.  A dead ray gets t = BIG_T, slot -1.
+template <bool kUV, bool kSlot>
+__device__ __forceinline__ BlockHit warp_walk(const Bvh& b, const Ray& r,
+                                              bool alive, float limit) {
+  extern __shared__ float4 smem4[];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float* const buf =
+      reinterpret_cast<float*>(smem4) + (threadIdx.x >> 5) * kChunkFloats;
+  BlockHit h{alive ? kBigT : -1.0f, 0.0f, 0.0f, -1, 0};
+  if (__any_sync(full, alive)) {
+    float sx = alive ? r.dx : 0.0f, sy = alive ? r.dy : 0.0f,
+          sz = alive ? r.dz : 0.0f;
+    for (int o = 16; o > 0; o >>= 1) {
+      sx += __shfl_xor_sync(full, sx, o);
+      sy += __shfl_xor_sync(full, sy, o);
+      sz += __shfl_xor_sync(full, sz, o);
+    }
+    const int* __restrict__ order = b.orders + order_index(sx, sy, sz) * b.K1;
+    const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+    const bool par = fabsf(r.dx) < kDirTiny || fabsf(r.dy) < kDirTiny ||
+                     fabsf(r.dz) < kDirTiny;
+    const int ns = static_cast<int>(b.ns);
+    const int nch = b.C / kChunk;
+    const int LC = b.C / b.S;   // lanes per segment
+    for (int k = 0; k < b.K1; ++k) {
+      const int kk = __ldg(order + k);
+      const bool entered =
+          alive && slab_entry(b.sc + 8 * kk, r, ix, iy, iz, par) <
+                       fminf(h.t, limit);
+      if (!__any_sync(full, entered)) continue;
+      for (int g = 0; g < b.G; ++g) {
+        const int row = kk * b.G + g;
+        for (int c = 0; c < nch; ++c) {
+          // the segments of the chunk that one of the warp's rays still
+          // enters before its best t (the per-ray walk's gates)
+          const int lo = c * kChunk, hi = lo + kChunk;
+          const float cur = fminf(h.t, limit);
+          unsigned groups = 0u;
+          for (int s = lo / LC; s < b.S && s * LC < hi; ++s) {
+            const bool need =
+                entered && slab_entry(b.seg + 8 * (row * b.S + s), r, ix,
+                                      iy, iz, par) < cur;
+            if (__any_sync(full, need))
+              groups |= bit_range((max(s * LC, lo) - lo) >> 2,
+                                  (min((s + 1) * LC, hi) - lo + 3) >> 2);
+          }
+          if (!groups) continue;
+          const float* src = b.tri + row * b.C + lo;
+          __syncwarp();          // the previous chunk has been tested
+          for (int q = lane; q < 9 * kChunk4; q += 32) {
+            const int p = q / kChunk4, w = q - p * kChunk4;
+            if ((groups >> w) & 1u)
+              cp_async16(buf + p * kChunk + 4 * w, src + p * ns + 4 * w);
+          }
+          cp_async_wait_all();
+          __syncwarp();          // every lane's copies are in
+          h.tests += 4 * __popc(groups);
+          mt_chunk<kUV, kSlot>(buf, groups, row * b.C + lo, r, h);
+        }
+      }
+    }
+  }
+  if (!alive) h.t = kBigT;
+  return h;
+}
+
+// Batches of blockDim rays in a window: kBatches for the block walk, one
+// for the warp walk, whose warps hold their block's resources until the
+// slowest one ends (longer windows ran slower: PERF.md).
+__host__ __device__ constexpr int window_batches(bool warp) {
+  return warp ? 1 : kBatches;
+}
+
+// A window of window_batches * blockDim consecutive rays per block: its
+// live rays are packed to the front in their order (a stable partition)
+// and walked in batches of blockDim, so dead rays scattered among live
+// ones (shadow rays of misses and back faces) idle no lane; a window with
+// no live ray walks nothing.  kWarp: each warp walks its rays on its own
+// (warp_walk), else the block together (block_walk).  `epi(i, ray,
+// alive, hit)` writes ray i's outputs; every ray of the window gets
+// exactly one call.
+template <bool kWarp, bool kUV, bool kSlot, typename Epilogue>
 __device__ void walk_window(const Bvh& b, const float* __restrict__ rays,
                             long long R, float limit, int* tests_out,
                             Epilogue epi) {
-  __shared__ int part_sm[kBatches * kMaxBlock];
-  __shared__ int count_sm[kBatches][kMaxBlock / 32];
+  constexpr int kB = window_batches(kWarp);
+  __shared__ int part_sm[kB * kMaxBlock];
+  __shared__ int count_sm[kB][kMaxBlock / 32];
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31,
             warp = tid >> 5, nw = nt / 32;
-  const long long base = blockIdx.x * static_cast<long long>(kBatches * nt);
-  unsigned ballots[kBatches];
+  const long long base = blockIdx.x * static_cast<long long>(kB * nt);
+  unsigned ballots[kB];
 #pragma unroll
-  for (int k = 0; k < kBatches; ++k) {
+  for (int k = 0; k < kB; ++k) {
     const long long i = base + k * nt + tid;
     const bool alive = i < R && fabsf(rays[i]) < kAliveLimit;
     ballots[k] = __ballot_sync(0xffffffffu, alive);
     if (lane == 0) count_sm[k][warp] = __popc(ballots[k]);
   }
   __syncthreads();
-  int live = 0, before[kBatches];
+  int live = 0, before[kB];
 #pragma unroll
-  for (int k = 0; k < kBatches; ++k)
+  for (int k = 0; k < kB; ++k)
     for (int w = 0; w < nw; ++w) {
       if (w == warp) before[k] = live;
       live += count_sm[k][w];
     }
   const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
-  for (int k = 0; k < kBatches; ++k) {
+  for (int k = 0; k < kB; ++k) {
     const int off = k * nt + tid;
     const int rank = before[k] + __popc(ballots[k] & lt);   // live before
     part_sm[(ballots[k] >> lane) & 1u ? rank : live + off - rank] = off;
@@ -562,14 +662,18 @@ __device__ void walk_window(const Bvh& b, const float* __restrict__ rays,
     const int p = bt * nt + tid;
     const long long i = base + part_sm[p];
     const Ray r = load_ray(rays, R, i);
-    const BlockHit h = block_walk<kUV, kSlot>(b, r, p < live, limit);
+    BlockHit h;
+    if constexpr (kWarp)
+      h = warp_walk<kUV, kSlot>(b, r, p < live, limit);
+    else
+      h = block_walk<kUV, kSlot>(b, r, p < live, limit);
     if (i < R) {
       if (tests_out) tests_out[i] = h.tests;
       epi(i, r, p < live, h);
     }
   }
   const BlockHit miss{kBigT, 0.0f, 0.0f, -1, 0};
-  for (int p = batches * nt + tid; p < kBatches * nt; p += nt) {
+  for (int p = batches * nt + tid; p < kB * nt; p += nt) {
     const long long i = base + part_sm[p];
     if (i < R) {
       if (tests_out) tests_out[i] = 0;
@@ -578,14 +682,18 @@ __device__ void walk_window(const Bvh& b, const float* __restrict__ rays,
   }
 }
 
-// Launch configuration of a block-walk kernel, and the one check of the
+// Launch configuration of a walk_window kernel, and the one check of the
 // shapes it takes: C a multiple of kChunk, S segments dividing C, 1 to
 // kMaxG rows per supercluster, blocks of 32 to kMaxBlock threads in whole
 // warps, 32-bit plane and box offsets, triangle planes 16-byte aligned
-// (cp.async copies 16 B).  Its dynamic shared memory is opted in above
-// the default 48 KB; past the card's limit that opt-in fails.
+// (cp.async copies 16 B).  Its dynamic shared memory (warp_smem_floats
+// for a warp walk, else walk_smem_floats) is always opted in, as the
+// default 48 KB counts the window's static 4 KB too (a block walk of 256
+// threads needs 47,648 B dynamic at G = 8, S = 4); past the card's limit
+// that opt-in fails.
 template <typename K>
-cudaError_t walk_config(K kernel, const Bvh& b, int block, size_t* smem) {
+cudaError_t walk_config(K kernel, const Bvh& b, int block, bool warp,
+                        size_t* smem) {
   if (b.C % kChunk != 0 || b.G < 1 || b.G > kMaxG || b.S < 1 ||
       b.C % b.S != 0 ||
       block % 32 != 0 || block < 32 || block > kMaxBlock ||
@@ -593,8 +701,8 @@ cudaError_t walk_config(K kernel, const Bvh& b, int block, size_t* smem) {
       8LL * b.K1 * b.G * b.S >= (1LL << 31) ||
       reinterpret_cast<unsigned long long>(b.tri) % 16 != 0 || b.ns % 4 != 0)
     return cudaErrorInvalidValue;
-  *smem = sizeof(float) * walk_smem_floats(b.G, b.S, block);
-  if (*smem <= 48 * 1024) return cudaSuccess;
+  *smem = sizeof(float) * (warp ? warp_smem_floats(block)
+                                : walk_smem_floats(b.G, b.S, block));
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(*smem));
@@ -748,7 +856,7 @@ __device__ __forceinline__ void spawn_epilogue(const SpawnArgs& a,
 
 template <bool kUV>
 __global__ void __launch_bounds__(kMaxBlock, 3) spawn_kernel(SpawnArgs a) {
-  walk_window<kUV, true>(
+  walk_window<false, kUV, true>(
       a.bvh, a.rays, a.R, kBigT, a.tests_out,
       [&](long long i, const Ray& r, bool alive, const BlockHit& h) {
         spawn_epilogue<kUV>(a, i, r, alive, h);
@@ -799,7 +907,7 @@ __device__ __forceinline__ void shade_epilogue(const ShadowArgs& a,
 
 __global__ void __launch_bounds__(kMaxBlock, 3)
     shadow_shade_kernel(ShadowArgs a) {
-  walk_window<false, false>(
+  walk_window<false, false, false>(
       a.bvh, a.rays, a.NS, kShadowTMax, a.tests_out,
       [&](long long i, const Ray& r, bool alive, const BlockHit& h) {
         shade_epilogue(a, i, r, alive, h);
@@ -816,35 +924,56 @@ struct ClosestArgs {
   const float* __restrict__ rec;     // (n_rec, ns) record planes or null
   int n_rec;
   float* t_out;     // (R,) BIG_T on a miss
-  float* uv_out;    // (2, R) or null (shadow mode)
-  int* slot_out;    // (R,) packed slot, -1 on a miss; or null (shadow mode)
+  float* uv_out;    // (2, R); null in shadow mode
+  int* slot_out;    // (R,) packed slot, -1 on a miss; null in shadow mode
   float* rec_out;   // (n_rec, R) winning record, 0 on a miss
-  int* rows_out;    // (R,) or null: rows that ran Moller-Trumbore
-  int* lanes_out;   // (R,) or null: lanes of the segments entered (kLanes)
+  int* tests_out;   // (R,) or null: tests each ray's warp ran
 };
 
-// Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel): the per-ray
-// walk, the winning record taken as the spawn epilogue takes it.
-template <bool kLanes>
-__global__ void closest_kernel(ClosestArgs a) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+// Generic closest hit (pallas_bvh.py:361-405, _bvh_kernel) on the warp
+// walk: t, u, v, the slot and the winning record, taken as the spawn
+// epilogue takes it; in shadow mode (kShadow) t only.
+template <bool kShadow>
+__global__ void __launch_bounds__(kMaxBlock, 3)
+    closest_kernel(ClosestArgs a) {
+  walk_window<true, !kShadow, !kShadow>(
+      a.bvh, a.rays, a.R, a.limit, a.tests_out,
+      [&](long long i, const Ray&, bool, const BlockHit& h) {
+        a.t_out[i] = h.t;
+        if constexpr (!kShadow) {
+          a.uv_out[i] = h.u;
+          a.uv_out[a.R + i] = h.v;
+          a.slot_out[i] = h.slot;
+          for (int k = 0; k < a.n_rec; ++k)
+            a.rec_out[k * a.R + i] =
+                h.slot >= 0 ? __ldg(a.rec + k * a.bvh.ns + h.slot) : 0.0f;
+        }
+      });
+}
+
+struct NeededArgs {
+  Bvh bvh;
+  const float* __restrict__ rays;    // (6, R)
+  long long R;
+  float limit;
+  int* rows_out;    // (R,) rows that ran Moller-Trumbore
+  int* lanes_out;   // (R,) lanes of the segments entered before the best t
+  float* t_out;     // (R,) BIG_T on a miss
+  int* slot_out;    // (R,) packed slot, -1 on a miss
+};
+
+// The per-ray walk's counters (and its closest hit) for every ray.
+__global__ void needed_kernel(NeededArgs a) {
+  const long long i =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= a.R) return;
-  const long long R = a.R;
-  const Ray r{a.rays[i], a.rays[R + i], a.rays[2 * R + i],
-              a.rays[3 * R + i], a.rays[4 * R + i], a.rays[5 * R + i]};
+  const Ray r = load_ray(a.rays, a.R, i);
   Hit h{kBigT, 0.0f, 0.0f, -1, 0, 0};
-  if (fabsf(r.ox) < kAliveLimit) h = traverse<kLanes>(a.bvh, r, a.limit);
-  if (a.rows_out) a.rows_out[i] = h.rows;
-  if (kLanes) a.lanes_out[i] = h.lanes;
+  if (fabsf(r.ox) < kAliveLimit) h = traverse(a.bvh, r, a.limit);
+  a.rows_out[i] = h.rows;
+  a.lanes_out[i] = h.lanes;
   a.t_out[i] = h.t;
-  if (a.uv_out) {
-    a.uv_out[i] = h.u;
-    a.uv_out[R + i] = h.v;
-  }
-  if (a.slot_out) a.slot_out[i] = static_cast<int>(h.slot);
-  for (int k = 0; k < a.n_rec; ++k)
-    a.rec_out[k * R + i] =
-        h.slot >= 0 ? __ldg(a.rec + k * a.bvh.ns + h.slot) : 0.0f;
+  a.slot_out[i] = static_cast<int>(h.slot);
 }
 
 Bvh make_bvh(const float* tri, const float* seg, const float* sc,
@@ -870,7 +999,7 @@ extern "C" int rtx_bvh_spawn(
               tests_out};
   auto kernel = uv_out ? spawn_kernel<true> : spawn_kernel<false>;
   size_t smem = 0;
-  const cudaError_t err = walk_config(kernel, a.bvh, block, &smem);
+  const cudaError_t err = walk_config(kernel, a.bvh, block, false, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (R == 0) return 0;
   const long long grid = (R + kBatches * block - 1) / (kBatches * block);
@@ -888,7 +1017,8 @@ extern "C" int rtx_bvh_shadow_shade(
   ShadowArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
                rays, NS, R, normal, color, view, light_color, out, tests_out};
   size_t smem = 0;
-  const cudaError_t err = walk_config(shadow_shade_kernel, a.bvh, block, &smem);
+  const cudaError_t err =
+      walk_config(shadow_shade_kernel, a.bvh, block, false, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (NS == 0) return 0;
   const long long grid = (NS + kBatches * block - 1) / (kBatches * block);
@@ -901,18 +1031,38 @@ extern "C" int rtx_bvh_closest(
     const float* rays, long long R, const float* tri, const float* seg,
     const float* sc, const int* orders, long long ns, int C, int S, int G,
     int K1, float limit, const float* rec, int n_rec, float* t_out,
-    float* uv_out, int* slot_out, float* rec_out, int* rows_out,
-    int* lanes_out, int block, void* stream) {
+    float* uv_out, int* slot_out, float* rec_out, int* tests_out, int block,
+    void* stream) {
+  const bool shadow = uv_out == nullptr;
   if (n_rec < 0 || n_rec > kMaxRec || (n_rec > 0 && (!rec || !rec_out)) ||
-      S < 1 || C % S != 0)
+      (shadow ? (slot_out || n_rec) : !slot_out))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (R == 0) return 0;
   ClosestArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
                 rays, R, limit, rec, n_rec, t_out, uv_out, slot_out,
-                rec_out, rows_out, lanes_out};
-  const long long grid = (R + block - 1) / block;
-  auto kernel = lanes_out ? closest_kernel<true> : closest_kernel<false>;
-  kernel<<<static_cast<unsigned>(grid), block, 0,
+                rec_out, tests_out};
+  auto kernel = shadow ? closest_kernel<true> : closest_kernel<false>;
+  size_t smem = 0;
+  const cudaError_t err = walk_config(kernel, a.bvh, block, true, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R == 0) return 0;
+  const long long grid = (R + window_batches(true) * block - 1) /
+                         (window_batches(true) * block);
+  kernel<<<static_cast<unsigned>(grid), block, smem,
            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rtx_bvh_tests_needed(
+    const float* rays, long long R, const float* tri, const float* seg,
+    const float* sc, const int* orders, long long ns, int C, int S, int G,
+    int K1, float limit, int* rows_out, int* lanes_out, float* t_out,
+    int* slot_out, int block, void* stream) {
+  if (S < 1 || C % S != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  NeededArgs a{make_bvh(tri, seg, sc, orders, ns, C, S, G, K1),
+               rays, R, limit, rows_out, lanes_out, t_out, slot_out};
+  const long long grid = (R + block - 1) / block;
+  needed_kernel<<<static_cast<unsigned>(grid), block, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

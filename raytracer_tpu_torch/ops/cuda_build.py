@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
@@ -35,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs = {}
+_builds = itertools.count()       # numbers each library `load_from` builds
 
 
 def _nvcc() -> str:
@@ -105,9 +107,11 @@ def load_from(name, src, setup, verbose: bool = False):
     """Build `src`, another version of ``csrc/<name>.cu`` with the same C
     interface, into its own library beside `name`'s and bind it with
     `setup`; `name`'s own library stays the one the wrappers load.
-    Returns (lib, compiler output)."""
+    Returns (lib, compiler output).  Each call builds its own file, so
+    one process can hold several versions of a source."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}_from.{os.getpid()}.so")
+    out = os.path.join(BUILD_DIR,
+                       f"lib{name}_from{next(_builds)}.{os.getpid()}.so")
     proc = _nvcc_start(os.path.abspath(src), out, verbose)
     report, _ = proc.communicate()
     if proc.returncode != 0:

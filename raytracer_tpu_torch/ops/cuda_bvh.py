@@ -15,13 +15,21 @@ Three CUDA kernels (``csrc/cuda_bvh.cu``) replace the TPU kernels:
 
 What bounds them on an H100 and what the design does about it is noted
 at the top of the CUDA source: the two fused kernels walk the BVH per
-block of rays, staging each row the block needs in shared memory
-(`walk_config` there refuses the shapes they do not take), and
-`bvh_closest` walks per ray.  Each wrapper checks its operands' shapes
-on any device, then runs the plain version for tensors on the CPU only;
-for CUDA tensors it launches its kernel or raises.  Each keeps a launch
-count (`bvh_spawn.launches`, `bvh_shadow_shade.launches`,
-`bvh_closest.launches`) that only a kernel launch raises.
+block of rays, staging each row the block needs in shared memory, and
+`bvh_closest` walks the same way per warp (`walk_config` there refuses
+the shapes they do not take).  Each wrapper checks its
+operands' shapes on any device, then runs the plain version for tensors
+on the CPU only; for CUDA tensors it launches its kernel or raises.
+Each keeps a launch count (`bvh_spawn.launches`,
+`bvh_shadow_shade.launches`, `bvh_closest.launches`) that only a kernel
+launch raises, and can write, per ray, the ray-triangle tests its warp
+ran (`tests_out`).
+
+`bvh_tests_needed` runs the per-ray walk of the first versions on the
+card as a counting entry (no plain version, no launch count, never on a
+timed path): per ray, the rows it tests and the lanes of the segments it
+enters before its best t, the tests the ray needs and the yardstick of
+every BVH kernel's bound.
 
 Rays are plane form: one (6, R) float32 tensor [ox, oy, oz, dx, dy, dz]
 per batch (the TPU kernels took six (nb, 128) planes; the port needs no
@@ -50,8 +58,8 @@ from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 ptr, raise_on)
 
 DEFAULT_RAY_BLOCK = 128      # CUDA threads per block (one ray each)
-# what an invalid-value error of a fused kernel means
-WALK_SHAPES = ("a shape the block walk does not take (csrc/cuda_bvh.cu "
+# what an invalid-value error of a walking kernel means
+WALK_SHAPES = ("a shape the walk does not take (csrc/cuda_bvh.cu "
                "walk_config)")
 
 DEAD_ORIGIN = 1.0e35         # sentinel origin of a dead ray
@@ -84,7 +92,10 @@ def _setup(lib):
         P, L, L, P, P, P, P, P, P, P, P, L, I, I, I, I, P, P, I, P]
     lib.rtx_bvh_closest.restype = I
     lib.rtx_bvh_closest.argtypes = [
-        P, L, P, P, P, P, L, I, I, I, I, Fl, P, I, P, P, P, P, P, P, I, P]
+        P, L, P, P, P, P, L, I, I, I, I, Fl, P, I, P, P, P, P, P, I, P]
+    lib.rtx_bvh_tests_needed.restype = I
+    lib.rtx_bvh_tests_needed.argtypes = [
+        P, L, P, P, P, P, L, I, I, I, I, Fl, P, P, P, P, I, P]
 
 
 def _load():
@@ -323,7 +334,7 @@ def bvh_closest_plain(rays, bvh: PackedBVH, rec=None, *, shadow=False):
 def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
               world_inv_span, children: int, emit_uv: bool,
               key_mode: str = "dir6", ray_block: int = DEFAULT_RAY_BLOCK,
-              rows_out=None):
+              tests_out=None):
     """Fused closest hit + spawn for one wavefront level (replaces
     pallas_bvh_spawn, raytracer_tpu/ops/pallas_bvh.py:985).
 
@@ -331,9 +342,8 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
     light_pos (L, 3) f32; rec (n_rec, NL*C) f32 shading-record planes
     [normal xyz, diffuse rgb (, tex id)]; world_lo / world_inv_span:
     3 floats each (float32 values) for the sort key.
-    rows_out: optional (R,) int32 that receives, per ray, the number of
-    ray-triangle tests (lanes, not rows) its warp ran (kernel only; the
-    tests run).
+    tests_out: optional (R,) int32 that receives, per ray, the number of
+    ray-triangle tests its warp ran (kernel only).
 
     Returns a dict: t (R,) [BIG_T on a miss]; u, v (R,) when emit_uv;
     rec (n_rec, R) winning record [0 on a miss]; shadow (6, L*R)
@@ -360,7 +370,7 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
                                children=children, emit_uv=emit_uv,
                                key_mode=key_mode)
     check_cuda("bvh_spawn", rays, gauss, light_pos, rec, bvh.tri,
-                bvh.seg_aabb, bvh.sc_aabb, bvh.orders, rows_out)
+                bvh.seg_aabb, bvh.sc_aabb, bvh.orders, tests_out)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     t = torch.empty((R,), **f32)
@@ -378,7 +388,7 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
         bvh.num_superclusters, *[float(x) for x in world_lo],
         *[float(x) for x in world_inv_span], KEY_MODES[key_mode], ptr(t),
         ptr(uv), ptr(rec_out), ptr(shadow), ptr(child), ptr(keys),
-        ptr(rows_out), ray_block, cuda_stream(dev))
+        ptr(tests_out), ray_block, cuda_stream(dev))
     raise_on(code, "bvh_spawn", WALK_SHAPES)
     counted(bvh_spawn, start, R)
     out = dict(t=t, rec=rec_out, shadow=shadow, children=child, keys=keys)
@@ -393,14 +403,14 @@ bvh_spawn.events = None     # a list: (start, end, rays) of each launch
 
 def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
                      bvh: PackedBVH, *, ray_block: int = DEFAULT_RAY_BLOCK,
-                     rows_out=None):
+                     tests_out=None):
     """Fused occlusion + Phong radiance for a light-major shadow batch
     (replaces pallas_bvh_shadow_shade, pallas_bvh.py:1068).
 
     shadow_rays (6, L*R) f32 from `bvh_spawn`; normal, color, view
-    (3, R) f32 parent-level planes; light_color (L, 3) f32.  rows_out:
-    optional (L*R,) int32, the ray-triangle tests (lanes) each shadow
-    ray's warp ran (kernel only).  Returns (3, L*R) radiance per light
+    (3, R) f32 parent-level planes; light_color (L, 3) f32.  tests_out:
+    optional (L*R,) int32, the ray-triangle tests each shadow ray's warp
+    ran (kernel only).  Returns (3, L*R) radiance per light
     chunk; the caller sums the L chunks."""
     NS = shadow_rays.shape[1]
     R = normal.shape[1]
@@ -416,7 +426,7 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
                                       light_color, bvh)
     check_cuda("bvh_shadow_shade", shadow_rays, normal, color, view,
                 light_color, bvh.tri, bvh.seg_aabb, bvh.sc_aabb, bvh.orders,
-                rows_out)
+                tests_out)
     out = torch.empty((3, NS), dtype=torch.float32, device=normal.device)
     lib = _load()
     start = event(bvh_shadow_shade)
@@ -424,7 +434,7 @@ def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
         ptr(shadow_rays), NS, R, ptr(normal), ptr(color), ptr(view),
         ptr(light_color), ptr(bvh.tri), ptr(bvh.seg_aabb),
         ptr(bvh.sc_aabb), ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S,
-        bvh.G, bvh.num_superclusters, ptr(out), ptr(rows_out), ray_block,
+        bvh.G, bvh.num_superclusters, ptr(out), ptr(tests_out), ray_block,
         cuda_stream(normal.device))
     raise_on(code, "bvh_shadow_shade", WALK_SHAPES)
     counted(bvh_shadow_shade, start, NS)
@@ -437,8 +447,7 @@ bvh_shadow_shade.events = None
 
 def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
                 shadow: bool = False, exact_order=None, stream=False,
-                ray_block: int = DEFAULT_RAY_BLOCK, rows_out=None,
-                lanes_out=None):
+                ray_block: int = DEFAULT_RAY_BLOCK, tests_out=None):
     """Closest hit of every ray (replaces pallas_bvh_closest,
     raytracer_tpu/ops/pallas_bvh.py:411).
 
@@ -449,12 +458,8 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
     returns t only.  `exact_order` and `stream` (the TPU kernel's
     walk-order and HBM-streaming variants) are accepted for parity and
     change nothing: one walk serves all of them.
-    rows_out: optional (R,) int32 that receives, per ray, the number of
-    rows that ran Moller-Trumbore (kernel only; the work counter).
-    lanes_out: optional (R,) int32, per ray, the lanes of the segments
-    of those rows that the ray enters before its best t so far (kernel
-    only): the tests the ray needs, the yardstick of every BVH kernel's
-    bound.  Counting lanes costs the walk a second slab test per segment.
+    tests_out: optional (R,) int32 that receives, per ray, the number of
+    ray-triangle tests its warp ran (kernel only).
 
     Returns a dict: t (R,) [BIG_T on a miss]; unless shadow: u, v (R,)
     [0 on a miss], slot (R,) int32 packed slot [-1 on a miss], and rec
@@ -470,7 +475,7 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
     if rays.device.type == "cpu":
         return bvh_closest_plain(rays, bvh, rec, shadow=shadow)
     check_cuda("bvh_closest", rays, rec, bvh.tri, bvh.seg_aabb, bvh.sc_aabb,
-               bvh.orders, rows_out, lanes_out)
+               bvh.orders, tests_out)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     t = torch.empty((R,), **f32)
@@ -485,9 +490,8 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
         ptr(rays), R, ptr(bvh.tri), ptr(bvh.seg_aabb), ptr(bvh.sc_aabb),
         ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
         bvh.num_superclusters, limit, ptr(rec), n_rec, ptr(t), ptr(uv),
-        ptr(slot), ptr(rec_out), ptr(rows_out), ptr(lanes_out), ray_block,
-        cuda_stream(dev))
-    raise_on(code, "bvh_closest")
+        ptr(slot), ptr(rec_out), ptr(tests_out), ray_block, cuda_stream(dev))
+    raise_on(code, "bvh_closest", WALK_SHAPES)
     counted(bvh_closest, start, R)
     if shadow:
         return dict(t=t)
@@ -499,6 +503,36 @@ def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
 
 bvh_closest.launches = 0
 bvh_closest.events = None
+
+
+def bvh_tests_needed(rays, bvh: PackedBVH, *, t_limit=None):
+    """The tests each ray needs: the per-ray walk (one thread a ray, in
+    its own direction order, gating each supercluster, row and segment
+    against its best t so far) counts them on the card.  The yardstick
+    of every BVH kernel's bound, on the same rays at the same t limit;
+    kernel only (it raises on a CPU tensor) and never timed.
+
+    Returns a dict of (R,) tensors: rows (int32) the rows the walk tests,
+    lanes (int32) the lanes of the segments among them that the ray
+    enters before its best t (the tests needed), and the walk's own
+    closest hit t and slot (int32, -1 on a miss)."""
+    if rays.shape[0] != 6:
+        raise ValueError(f"bvh_tests_needed: rays {tuple(rays.shape)}")
+    check_cuda("bvh_tests_needed", rays, bvh.tri, bvh.seg_aabb, bvh.sc_aabb,
+               bvh.orders)
+    R = rays.shape[1]
+    dev = rays.device
+    rows, lanes, slot = (torch.empty((R,), dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    code = _load().rtx_bvh_tests_needed(
+        ptr(rays), R, ptr(bvh.tri), ptr(bvh.seg_aabb), ptr(bvh.sc_aabb),
+        ptr(bvh.orders), bvh.num_slots, bvh.C, bvh.S, bvh.G,
+        bvh.num_superclusters, BIG_T if t_limit is None else float(t_limit),
+        ptr(rows), ptr(lanes), ptr(t), ptr(slot), DEFAULT_RAY_BLOCK,
+        cuda_stream(dev))
+    raise_on(code, "bvh_tests_needed")
+    return dict(rows=rows, lanes=lanes, t=t, slot=slot)
 
 
 # --- the intersector -------------------------------------------------------

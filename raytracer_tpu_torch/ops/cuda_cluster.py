@@ -9,11 +9,17 @@ One CUDA kernel (``csrc/cuda_cluster.cu``) replaces the TPU kernel:
   runtime t limit.
 
 What bounds it on an H100 and what the design does about it is noted
-at the top of the CUDA source.  The wrapper runs the plain version for
-tensors on the CPU only; for CUDA tensors it launches the kernel or
-raises.  It keeps a launch count (`cluster_closest.launches`) that only
-a kernel launch raises.  Built with nvcc for sm_90a on first use into
-``build/torch_kernels/`` and bound through ctypes (ops/cuda_build.py).
+at the top of the CUDA source: the warp walk of `bvh_closest`, written
+for the flat grid (`walk_takes` there refuses the shapes it does not
+take).  The
+wrapper checks its operands' shapes on any device, then runs the plain
+version for tensors on the CPU only; for CUDA tensors it launches the
+kernel or raises.  It keeps a launch count (`cluster_closest.launches`)
+that only a kernel launch raises.  `cluster_tests_needed` runs the
+per-ray walk of the first version on the card as a counting entry (the
+yardstick of the kernel's bound; no plain version, no launch count).
+Built with nvcc for sm_90a on first use into ``build/torch_kernels/``
+and bound through ctypes (ops/cuda_build.py).
 """
 
 from __future__ import annotations
@@ -35,11 +41,18 @@ from raytracer_tpu_torch.ops.cuda_bvh import (DEFAULT_RAY_BLOCK,
                                               closest_plain, hit_dict,
                                               rays_from)
 
+# what an invalid-value error of the cluster kernel means
+WALK_SHAPES = ("a shape the walk does not take "
+               "(csrc/cuda_cluster.cu walk_takes)")
+
 
 def _setup(lib):
     lib.rtx_cluster_closest.restype = I
     lib.rtx_cluster_closest.argtypes = [
         P, L, P, P, P, L, I, I, Fl, P, P, P, P, I, P]
+    lib.rtx_cluster_tests_needed.restype = I
+    lib.rtx_cluster_tests_needed.argtypes = [
+        P, L, P, P, P, L, I, I, Fl, P, P, P, I, P]
 
 
 def _load():
@@ -94,23 +107,23 @@ def cluster_closest_plain(rays, grid: PackedGrid):
 
 
 def cluster_closest(rays, grid: PackedGrid, *, t_limit=None,
-                    ray_block: int = DEFAULT_RAY_BLOCK, rows_out=None):
+                    ray_block: int = DEFAULT_RAY_BLOCK, tests_out=None):
     """Closest hit of every ray over the cluster grid (replaces
     pallas_cluster_closest, raytracer_tpu/ops/pallas_intersect.py:312).
 
     rays (6, R) f32 (dead rays: |ox| >= 1e30); t_limit: the closest hit
-    below it is exact, beyond it clusters may be culled.  rows_out:
-    optional (R,) int32 that receives, per ray, the number of clusters
-    that ran Moller-Trumbore (kernel only; the work counter).
+    below it is exact, beyond it clusters may be culled.  tests_out:
+    optional (R,) int32 that receives, per ray, the number of
+    ray-triangle tests its warp ran (kernel only).
 
     Returns a dict: t (R,) [BIG_T on a miss], u, v (R,) [0 on a miss],
     slot (R,) int32 packed slot [-1 on a miss]."""
+    if rays.shape[0] != 6:
+        raise ValueError(f"cluster_closest: rays {tuple(rays.shape)}")
     if rays.device.type == "cpu":
         return cluster_closest_plain(rays, grid)
     check_cuda("cluster_closest", rays, grid.tri, grid.aabb, grid.orders,
-               rows_out)
-    if rays.shape[0] != 6:
-        raise ValueError(f"cluster_closest: rays {tuple(rays.shape)}")
+               tests_out)
     R = rays.shape[1]
     dev = rays.device
     t = torch.empty((R,), dtype=torch.float32, device=dev)
@@ -122,14 +135,41 @@ def cluster_closest(rays, grid: PackedGrid, *, t_limit=None,
     code = lib.rtx_cluster_closest(
         ptr(rays), R, ptr(grid.tri), ptr(grid.aabb), ptr(grid.orders),
         grid.num_slots, grid.C, grid.num_clusters, limit, ptr(t), ptr(uv),
-        ptr(slot), ptr(rows_out), ray_block, cuda_stream(dev))
-    raise_on(code, "cluster_closest")
+        ptr(slot), ptr(tests_out), ray_block, cuda_stream(dev))
+    raise_on(code, "cluster_closest", WALK_SHAPES)
     counted(cluster_closest, start, R)
     return dict(t=t, u=uv[0], v=uv[1], slot=slot)
 
 
 cluster_closest.launches = 0
 cluster_closest.events = None     # a list: (start, end, rays) of each launch
+
+
+def cluster_tests_needed(rays, grid: PackedGrid, *, t_limit=None):
+    """The clusters each ray enters before its best t in the per-ray
+    walk (one thread a ray, in its own direction order); times C, the
+    tests the ray needs: the yardstick of the kernel's bound, on the same
+    rays at the same t limit.  Kernel only (it raises on a CPU tensor)
+    and never timed.
+
+    Returns a dict of (R,) tensors: clusters (int32), and the walk's own
+    closest hit t and slot (int32, -1 on a miss)."""
+    if rays.shape[0] != 6:
+        raise ValueError(f"cluster_tests_needed: rays {tuple(rays.shape)}")
+    check_cuda("cluster_tests_needed", rays, grid.tri, grid.aabb,
+               grid.orders)
+    R = rays.shape[1]
+    dev = rays.device
+    clusters, slot = (torch.empty((R,), dtype=torch.int32, device=dev)
+                      for _ in range(2))
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    code = _load().rtx_cluster_tests_needed(
+        ptr(rays), R, ptr(grid.tri), ptr(grid.aabb), ptr(grid.orders),
+        grid.num_slots, grid.C, grid.num_clusters,
+        BIG_T if t_limit is None else float(t_limit), ptr(clusters), ptr(t),
+        ptr(slot), DEFAULT_RAY_BLOCK, cuda_stream(dev))
+    raise_on(code, "cluster_tests_needed")
+    return dict(clusters=clusters, t=t, slot=slot)
 
 
 class ClusterIntersector:

@@ -164,8 +164,8 @@ def _fused_check(card, isect, o, d, b=1, L=1, seed=1):
     kw = dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
               children=b, emit_uv=planes.shape[0] == 7, key_mode="dir6")
     rows = torch.full((R,), -1, dtype=torch.int32, device=card)
-    got = cuda_bvh.bvh_spawn(rays, g, lp, isect.packed, planes, rows_out=rows,
-                             **kw)
+    got = cuda_bvh.bvh_spawn(rays, g, lp, isect.packed, planes,
+                             tests_out=rows, **kw)
     want = cuda_bvh.bvh_spawn_plain(rays, g, lp, isect.packed, planes, **kw)
     assert torch.equal(got["t"], want["t"])
     ties = (got["rec"] != want["rec"]).any(0)
@@ -185,7 +185,7 @@ def _fused_check(card, isect, o, d, b=1, L=1, seed=1):
     args = (got["shadow"], got["rec"][0:3], got["rec"][3:6], rays[3:6],
             lc.to(card))
     rows_sh = torch.full((L * R,), -1, dtype=torch.int32, device=card)
-    rad = cuda_bvh.bvh_shadow_shade(*args, isect.packed, rows_out=rows_sh)
+    rad = cuda_bvh.bvh_shadow_shade(*args, isect.packed, tests_out=rows_sh)
     assert torch.equal(rad, cuda_bvh.bvh_shadow_shade_plain(*args,
                                                             isect.packed))
     assert bool((rows >= 0).all()) and bool((rows_sh >= 0).all())
@@ -221,32 +221,37 @@ def test_fused_kernels_dead_and_ragged_blocks(card, case):
         assert int(rows.sum()) > 0
 
 
-def test_fused_kernels_rays_needing_disjoint_rows(card):
-    """Two clusters of triangles far apart, and one block whose rays
-    alternate between them: the block's row list is the union of two
-    disjoint sets, and each ray still gets its own closest hit."""
-    rng = np.random.default_rng(7)
+def _two_sides(R=512, seed=7):
+    """Two heaps of triangles far apart on the x axis, and R rays whose
+    neighbours alternate between them: a block needs two disjoint sets of
+    rows (or clusters)."""
+    rng = np.random.default_rng(seed)
     n = 1500
     centers = np.zeros((2 * n, 1, 3))
     centers[:n, 0, 0], centers[n:, 0, 0] = -40.0, 40.0
     tris = (centers + rng.uniform(-3, 3, (2 * n, 1, 3))
             + rng.uniform(-0.7, 0.7, (2 * n, 3, 3))).astype(np.float32)
-    R = 512
     side = np.where(np.arange(R) % 2 == 0, -40.0, 40.0)[:, None]
     o = np.concatenate([side[:, :1], np.zeros((R, 1)), np.full((R, 1), -20.0)],
                        axis=1) + rng.uniform(-2, 2, (R, 3))
     d = np.concatenate([rng.uniform(-0.05, 0.05, (R, 2)), np.ones((R, 1))],
                        axis=1)
+    return (tris, torch.from_numpy(o.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)))
+
+
+def test_fused_kernels_rays_needing_disjoint_rows(card):
+    """Two clusters of triangles far apart, and one block whose rays
+    alternate between them: the block's row list is the union of two
+    disjoint sets, and each ray still gets its own closest hit."""
+    tris, o, d = _two_sides()
     isect = _fused(card, tris)
-    got, rows, _ = _fused_check(card, isect, torch.from_numpy(o.astype(
-        np.float32)), torch.from_numpy(d.astype(np.float32)), b=0)
+    got, rows, _ = _fused_check(card, isect, o, d, b=0)
     hit = got["t"] < np.float32(BIG_T)
     assert bool(hit[0::2].any()) and bool(hit[1::2].any())
     # the rows a ray of each cluster needs lie in its own half of the BVH
-    need = torch.zeros((R,), dtype=torch.int32, device=card)
-    cuda_bvh.bvh_closest(rays_from(torch.from_numpy(o.astype(np.float32)),
-                                   torch.from_numpy(d.astype(np.float32))
-                                   ).to(card), isect.packed, rows_out=need)
+    need = cuda_bvh.bvh_tests_needed(rays_from(o, d).to(card),
+                                     isect.packed)["rows"]
     assert int(need.sum()) > 0 and int(rows.sum()) > 0
 
 
@@ -360,25 +365,26 @@ def test_fused_kernels_raise_on_shapes_they_do_not_take(card, kw, block):
 
 @pytest.mark.parametrize("seg", [1, 4])
 def test_closest_lanes_counter(card, seg):
-    """bvh_closest's lanes_out counts, within the rows the per-ray walk
-    tests (rows_out), the lanes of the segments a ray enters before its
-    best t: a row of one segment counts whole; else each tested row
-    counts between one segment and all of its lanes, whole segments, and
-    some segments are skipped.  Counting changes no output."""
+    """bvh_tests_needed's lanes count, within the rows its per-ray walk
+    tests, the lanes of the segments a ray enters before its best t: a
+    row of one segment counts whole; else each tested row counts between
+    one segment and all of its lanes, whole segments, and some segments
+    are skipped.  The counting walk's t equals the block walk's below the
+    limit, and its slots differ only on exact-t ties."""
     tris, o, d = _random()
     isect = BVHIntersector(_Buffers(tris), seg=seg, device=card)
     C, S = isect.packed.C, isect.packed.S
     assert S == seg
     rays = rays_from(o, d).to(card)
-    for kw in (dict(), dict(t_limit=1.0, shadow=True)):
-        rows = torch.full((rays.shape[1],), -1, dtype=torch.int32,
-                          device=card)
-        lanes = torch.full_like(rows, -1)
-        got = cuda_bvh.bvh_closest(rays, isect.packed, rows_out=rows,
-                                   lanes_out=lanes, **kw)
-        want = cuda_bvh.bvh_closest(rays, isect.packed, **kw)
-        for k in want:
-            assert torch.equal(got[k], want[k]), k
+    for limit, shadow in ((None, False), (1.0, True)):
+        n = cuda_bvh.bvh_tests_needed(rays, isect.packed, t_limit=limit)
+        rows, lanes = n["rows"], n["lanes"]
+        got = cuda_bvh.bvh_closest(rays, isect.packed, t_limit=limit,
+                                   shadow=shadow)
+        below = n["t"] < (BIG_T if limit is None else limit)
+        assert torch.equal(got["t"][below], n["t"][below])
+        if not shadow:
+            assert int((got["slot"] != n["slot"]).sum()) <= MAX_TIES
         dead = (rays[0].abs() >= 1e30)
         assert int(rows[dead].sum()) == 0 and int(lanes[dead].sum()) == 0
         if S == 1:
@@ -388,3 +394,225 @@ def test_closest_lanes_counter(card, seg):
             assert bool((lanes >= rows * (C // S)).all())
             assert bool((lanes <= rows * C).all())
             assert int(lanes.sum()) < int(rows.sum()) * C
+
+
+# --- the closest-hit kernels' block walks ------------------------------------
+#
+# bvh_closest runs the fused kernels' block walk; cluster_closest a block
+# walk of the same shape over the flat grid (csrc/cuda_cluster.cu).  Each
+# case holds a kernel against its plain version on the same card tensors:
+# t equal bit for bit below the t limit (and never below the dense t past
+# it), slots, u/v and records equal except on exact-t ties across rows or
+# clusters (at most MAX_TIES rays of a case).
+
+
+def _isect(card, kind, tris, **kw):
+    cls = BVHIntersector if kind == "bvh" else ClusterIntersector
+    return cls(_Buffers(tris), device=card, **kw)
+
+
+def _closest_check(card, kind, isect, rays, t_limit=None, shadow=False,
+                   rec=None, ray_block=128):
+    """One closest-hit kernel against its plain version on `rays`;
+    returns (kernel outputs, plain outputs, per-ray tests run)."""
+    R = rays.shape[1]
+    tests = torch.full((R,), -1, dtype=torch.int32, device=card)
+    if kind == "bvh":
+        got = cuda_bvh.bvh_closest(rays, isect.packed, rec, t_limit=t_limit,
+                                   shadow=shadow, ray_block=ray_block,
+                                   tests_out=tests)
+        want = cuda_bvh.bvh_closest_plain(rays, isect.packed, rec,
+                                          shadow=shadow)
+    else:
+        got = cuda_cluster.cluster_closest(rays, isect.packed,
+                                           t_limit=t_limit,
+                                           ray_block=ray_block,
+                                           tests_out=tests)
+        want = cuda_cluster.cluster_closest_plain(rays, isect.packed)
+    assert set(got) == set(want)
+    below = want["t"] < (BIG_T if t_limit is None else t_limit)
+    assert bool((got["t"] >= want["t"]).all())
+    assert torch.equal(got["t"][below], want["t"][below])
+    if "slot" in want:
+        ties = below & (got["slot"] != want["slot"])
+        assert int(ties.sum()) <= MAX_TIES
+        same = below & ~ties
+        for k in ("slot", "u", "v"):
+            assert torch.equal(got[k][same], want[k][same]), k
+        if rec is not None:
+            assert torch.equal(got["rec"][:, same], want["rec"][:, same])
+    assert bool((tests >= 0).all())
+    return got, want, tests
+
+
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+@pytest.mark.parametrize("case", ["dead_block", "mixed", "ragged",
+                                  "block256"])
+def test_closest_kernels_dead_and_ragged_windows(card, kind, case):
+    """A window of 512 rays that is all dead walks nothing (no test
+    counted, every ray a miss); windows that mix dead and live rays; a
+    ray count that is not a multiple of the window; blocks of 256
+    threads (their shared memory opted in past the default)."""
+    tris, o, d = _random(n_rays=1001 if case == "ragged" else 4096)
+    if case == "dead_block":
+        o, d = _dead(o, d, slice(512, 1024))
+    elif case == "mixed":
+        o, d = _dead(o, d, slice(None, None, 3))
+    isect = _isect(card, kind, tris)
+    rays = rays_from(o, d).to(card)
+    block = 256 if case == "block256" else 128
+    for shadow in (False, True):
+        got, _, tests = _closest_check(
+            card, kind, isect, rays, t_limit=1.0 if shadow else None,
+            shadow=shadow and kind == "bvh", ray_block=block)
+        alive = (o[:, 0].abs() < 1e30).to(card)
+        assert bool((got["t"][~alive] == np.float32(BIG_T)).all())
+        assert bool((got["t"][alive] < np.float32(BIG_T)).any())
+        if case == "dead_block":
+            assert int(tests[512:1024].sum()) == 0
+            assert int(tests.sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+def test_closest_kernels_rays_needing_disjoint_parts(card, kind):
+    """Neighbouring rays that need rows (or clusters) far apart: the
+    block stages the union, and each ray still gets its own hit."""
+    tris, o, d = _two_sides()
+    got, _, _ = _closest_check(card, kind, _isect(card, kind, tris),
+                               rays_from(o, d).to(card))
+    hit = got["t"] < np.float32(BIG_T)
+    assert bool(hit[0::2].any()) and bool(hit[1::2].any())
+
+
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+def test_closest_kernels_t_limit_and_shadow(card, kind):
+    """A t limit at the median hit: exact below it; the (0.01, 1.0)
+    shadow window through the intersector equals the plain version's;
+    bvh_closest's shadow mode returns t alone."""
+    tris, o, d = _random()
+    isect = _isect(card, kind, tris)
+    rays = rays_from(o, d).to(card)
+    _, want, _ = _closest_check(card, kind, isect, rays)
+    hit_t = want["t"][want["t"] < BIG_T]
+    _closest_check(card, kind, isect, rays, t_limit=float(hit_t.median()))
+    if kind == "bvh":
+        got, _, _ = _closest_check(card, kind, isect, rays, t_limit=1.0,
+                                   shadow=True)
+        assert set(got) == {"t"}
+    cpu = _isect("cpu", kind, tris)
+    np.testing.assert_array_equal(
+        isect.shadow(None, o.to(card), d.to(card)).cpu().numpy(),
+        cpu.shadow(None, o, d).numpy())
+
+
+@pytest.mark.parametrize("n_rec", [6, 7])
+def test_bvh_closest_record_planes(card, n_rec):
+    """The winning triangle's 6 or 7 record values, 0 on a miss, as the
+    composable wavefront's emit_shade query takes them."""
+    tris, o, d = _random()
+    isect = _fused(card, tris, n_rec=n_rec)
+    got, _, _ = _closest_check(card, "bvh", isect, rays_from(o, d).to(card),
+                               rec=isect.shade_planes)
+    assert got["rec"].shape == (n_rec, o.shape[0])
+    miss = got["t"] == np.float32(BIG_T)
+    assert bool(miss.any()) and bool((got["rec"][:, miss] == 0).all())
+
+
+@pytest.mark.parametrize("tpl,C", [(70, 128), (256, 256)])
+def test_cluster_kernel_stages_every_cluster_width(card, tpl, C):
+    """C = 128 and 256 lanes a cluster: one and two staged chunks."""
+    tris, o, d = _random()
+    isect = _isect(card, "cluster", tris, triangles_per_leaf=tpl)
+    assert isect.packed.C == C
+    _closest_check(card, "cluster", isect, rays_from(o, d).to(card))
+
+
+def test_cluster_kernel_culls_nan_slabs_per_ray_under_the_warp_union(card):
+    """Rays lying on a plane of the quad's box with a zero direction
+    component (rays 1-3 of O: a NaN slab entry) among 121 rays of the
+    same window and warps that enter the cluster and hit it at t = 1:
+    their warps test the cluster, yet they take no hit from it, as the
+    plain version culls them."""
+    rng = np.random.default_rng(3)
+    R = 128
+    o = np.zeros((R, 3), np.float32)
+    o[:, :2] = rng.uniform(0.05, 0.95, (R, 2))
+    d = np.tile(np.float32([0, 0, 1]), (R, 1))
+    plane = np.array([5, 6, 37, 70, 71, 100, 127])
+    o[plane] = O[[1, 2, 3, 1, 2, 3, 1]]
+    isect = _isect(card, "cluster", QUAD)
+    got, want, _ = _closest_check(card, "cluster", isect, rays_from(
+        torch.from_numpy(o), torch.from_numpy(d)).to(card))
+    assert torch.equal(got["slot"], want["slot"])
+    t = got["t"].cpu().numpy()
+    assert (t[plane] == np.float32(BIG_T)).all()
+    enter = np.setdiff1d(np.arange(R), plane)
+    assert len(enter) >= 100 and (t[enter] == 1.0).all()
+
+
+def _bare_grid(card, C=128, K=2, offset=0):
+    """A cluster grid of zeros on the card with the given shape."""
+    tri = torch.zeros(9 * K * C + offset, device=card)[offset:]
+    return cuda_cluster.PackedGrid(
+        tri=tri.view(9, K * C), aabb=torch.zeros((K, 8), device=card),
+        orders=torch.zeros((6, K), dtype=torch.int32, device=card), C=C)
+
+
+@pytest.mark.parametrize("kind,kw,block", [
+    ("bvh", dict(C=192), 128),       # C not a multiple of the chunk
+    ("bvh", dict(G=33), 128),        # more rows than a 32-bit row mask
+    ("bvh", dict(S=3), 128),         # segments that do not divide C
+    ("bvh", dict(), 100),            # a block of partial warps
+    ("bvh", dict(), 512),            # past __launch_bounds__
+    ("bvh", dict(offset=1), 128),    # planes cp.async cannot copy
+    ("bvh", dict(G=0), 128),         # superclusters of no rows
+    ("cluster", dict(C=192), 128),
+    ("cluster", dict(C=64), 128),
+    ("cluster", dict(), 100),
+    ("cluster", dict(), 512),
+    ("cluster", dict(offset=1), 128),
+])
+def test_closest_kernels_raise_on_shapes_they_do_not_take(card, kind, kw,
+                                                          block):
+    """bvh_closest (walk_config) and cluster_closest (walk_takes) raise on
+    every shape their block walk refuses and count no launch; the next
+    launch still works."""
+    rays = torch.zeros((6, 64), device=card)
+    if kind == "bvh":
+        wrapper = cuda_bvh.bvh_closest
+        packed = _bare(card, **kw)
+    else:
+        wrapper = cuda_cluster.cluster_closest
+        packed = _bare_grid(card, **kw)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wrapper(rays, packed, ray_block=block)
+    assert wrapper.launches == before
+    tris, o, d = _random(n_rays=512)
+    _closest_check(card, kind, _isect(card, kind, tris),
+                   rays_from(o, d).to(card))
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+def test_tests_run_cover_tests_needed(card, kind):
+    """On the same rays, the block walk's warps run at least the tests
+    that the per-ray counting walk needs (each warp tests the union of its
+    rays' needs), and the counting walk's closest t is the block walk's
+    below the limit."""
+    tris, o, d = _random()
+    isect = _isect(card, kind, tris)
+    rays = rays_from(o, d).to(card)
+    for limit in (None, 1.0):
+        got, _, run = _closest_check(card, kind, isect, rays, t_limit=limit)
+        if kind == "bvh":
+            n = cuda_bvh.bvh_tests_needed(rays, isect.packed, t_limit=limit)
+            need = n["lanes"]
+        else:
+            n = cuda_cluster.cluster_tests_needed(rays, isect.packed,
+                                                  t_limit=limit)
+            need = n["clusters"] * isect.packed.C
+        assert int(run.sum()) >= int(need.sum()) > 0
+        below = n["t"] < (BIG_T if limit is None else limit)
+        assert torch.equal(got["t"][below], n["t"][below])
+        assert int((below & (got["slot"] != n["slot"])).sum()) <= MAX_TIES

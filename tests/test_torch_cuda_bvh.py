@@ -22,7 +22,7 @@ from raytracer_tpu.models.collada import ColladaLoader as JaxLoader
 from raytracer_tpu.ops.pallas_bvh import (BVHIntersector as JaxBVH,
                                           pallas_bvh_shadow_shade,
                                           pallas_bvh_spawn)
-from raytracer_tpu_torch.ops import cuda_bvh
+from raytracer_tpu_torch.ops import cuda_bvh, cuda_cluster
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 
 N_RAYS = 1024          # one interpret-mode grid step of the TPU kernels
@@ -470,6 +470,18 @@ def _closest(**kw):
     return cuda_bvh.bvh_closest(**ops)
 
 
+def _grid(C=128, K=2):
+    return cuda_cluster.PackedGrid(
+        tri=torch.zeros((9, K * C)), aabb=torch.zeros((K, 8)),
+        orders=torch.zeros((6, K), dtype=torch.int32), C=C)
+
+
+def _cluster_closest(**kw):
+    ops = dict(rays=torch.zeros((6, 4)), grid=_grid())
+    ops.update(kw)
+    return cuda_cluster.cluster_closest(**ops)
+
+
 @pytest.mark.parametrize("call,kw,what", [
     (_spawn, dict(rays=torch.zeros((5, 4))), "rays"),
     (_spawn, dict(gauss=torch.zeros((3, 5))), "gauss"),
@@ -486,6 +498,8 @@ def _closest(**kw):
     (_closest, dict(rays=torch.zeros((3, 4))), "rays"),
     (_closest, dict(rec="wide"), "rec"),
     (_closest, dict(rec="short"), "rec"),
+    (_cluster_closest, dict(rays=torch.zeros((3, 4))), "rays"),
+    (_cluster_closest, dict(rays=torch.zeros((7, 4))), "rays"),
 ])
 def test_wrappers_raise_on_mismatched_operands(call, kw, what):
     """Each wrapper checks its operands' shapes before it picks a device,
@@ -494,7 +508,8 @@ def test_wrappers_raise_on_mismatched_operands(call, kw, what):
         call(**kw)
 
 
-@pytest.mark.parametrize("call", [_spawn, _shade, _closest])
+@pytest.mark.parametrize("call", [_spawn, _shade, _closest,
+                                  _cluster_closest])
 def test_wrappers_take_matching_operands_on_the_cpu(call):
     """The same operands with matching shapes run the plain versions:
     every ray here is a miss (zero-area triangles)."""
@@ -504,3 +519,14 @@ def test_wrappers_take_matching_operands_on_the_cpu(call):
         assert bool((t == BIG_T).all())
     else:
         assert out.shape == (3, 8) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("count", [
+    lambda: cuda_bvh.bvh_tests_needed(torch.zeros((6, 4)), _packed()),
+    lambda: cuda_cluster.cluster_tests_needed(torch.zeros((6, 4)), _grid()),
+], ids=["bvh", "cluster"])
+def test_counting_entries_raise_on_the_cpu(count):
+    """The per-ray counting walks (the bounds' yardstick) run on the card
+    only: a CPU tensor raises, with no plain fallback."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        count()
