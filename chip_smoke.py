@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py            # the whole check (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only, small
-    python3 chip_smoke.py --profile  # + kernel profiles of two renders
+    python3 chip_smoke.py --profile  # + kernel profiles of two renders,
+                                     # a CLI frame and an inverse step
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -46,6 +47,25 @@ Phases (any failure raises and exits non-zero):
       __graft_entry__.entry() runs), thai2 1024x1024, 1 sample,
       recursions 2: 6 bvh_closest launches;
    each timed, with each kernel's launch count and CUDA-event times;
+   d. the compact "mat" records: spawn with 4 record planes against its
+      plain version at levels 0 and 1 of a pooled thai2 1024x1024
+      wavefront (tpl 256), timed beside the 6 "full" planes; render(16)
+      of thai2 1024x1024 in turns (full, mat, mat, full) from the same
+      draws, 0 differing film values and launches 6 + 6; ico3_tex
+      (textured) at 256x256, 2 spp, "mat" against "full", 0 differing;
+   e. the CLI (`cli.main`) at its defaults on thai2 (1024x768, -m 70, 2
+      bounces) for one progressive pass of 16 frames: its prints, launch
+      counts (3 levels a frame: 48 + 48) and a PNG that decodes to
+      768x1024x3; then `--accel cluster -i 2` (12 launches);
+   f. inverse rendering of ico3_tex at 1024x1024, 1 spp, 2 bounces,
+      brute force on the card: 3 Adam steps over albedo and vertices
+      (loss falling, seconds per step, peak memory, no kernel launch);
+      the first step's gradients at 64x64 on the card against the CPU
+      (the CPU tests' tolerance); a BVH intersector under autograd
+      raises;
+   g. the viewer over create_inline_raytracer (1024x768) on a free
+      local port: 3 frames, /frame.png decodes, /stats, /key/w clears
+      the film, then shut down;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
@@ -872,16 +892,370 @@ def phase_bvh_trace(rt, rec):
     return counts["bvh_closest"], times["bvh_closest"]
 
 
-def phase_profile(what, rt, spp, rec):
-    """torch.profiler over one render(spp): device time by kernel and the
-    device's busy share of the wall time."""
+MAT_COLS = [0, 1, 2, 7]     # "mat" records: normal xyz, material id
+
+
+def install_records(rt, fmt):
+    """Install `fmt` ("full" or "mat") shading records built from rt's
+    scene on its BVH, as a user would after construction."""
+    from raytracer_tpu_torch.core.shade import build_slot_records
+    isect = rt.intersector
+    records = build_slot_records(rt.scene_arrays, isect.perm,
+                                 isect.perm.shape[0])
+    textured = bool((rt.scene_buffers.mat_tex_id >= 0).any())
+    if fmt == "mat":
+        isect.set_shade_records(records[:, MAT_COLS], fmt="mat",
+                                textured=textured)
+    else:
+        isect.set_shade_records(records[:, :7 if textured else 6])
+    return isect.shade_planes
+
+
+def render_fresh(rt, spp, seed):
+    """render(spp) into a cleared film with fresh draws from `seed`;
+    returns (pixel sums on the card, seconds)."""
+    import raytracer_tpu_torch as rtx
+    import torch
+    rt.film.clear()
+    rt.draws = rtx.TorchDraws(seed, rt.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt.render(spp)
+    torch.cuda.synchronize()
+    return rt.film.pixel_sum.clone(), time.perf_counter() - t0
+
+
+def phase_mat(rt, rec):
+    """The "mat" records: the spawn kernel with 4 record planes against
+    its plain version at the full level-0 and level-1 shapes; render(16)
+    of thai2 1024x1024 with "mat" against "full" records in turns; ico3_tex
+    at 256x256 (textured) "mat" against "full"."""
+    import torch
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.ops import cuda_bvh
+    out = {}
+    isect = rt.intersector
+    bvh = isect.packed
+    lp = rt.scene_arrays.light_pos
+    kw = spawn_kw(isect)
+    full = isect.shade_planes
+    mat = install_records(rt, "mat")
+    install_records(rt, "full")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    for level, b, rays, g, _, _ in wavefront_levels(rt, 8, gen):
+        if level == 2:
+            break
+        R = rays.shape[1]
+        got = cuda_bvh.bvh_spawn(rays, g, lp, bvh, mat, children=b, **kw)
+        want, p_ms = timed(lambda: cuda_bvh.bvh_spawn_plain(
+            rays, g, lp, bvh, mat, children=b, **kw))
+        err = check_spawn(f"level {level} b={b} L=1, 4 'mat' record planes "
+                          f"({R} rays)", got, want, rays, b, 1, bvh, mat)
+        del got, want
+        ms = {n: cuda_ms(lambda: cuda_bvh.bvh_spawn(rays, g, lp, bvh, planes,
+                                                    children=b, **kw), 5)
+              for n, planes in (("full", full), ("mat", mat))}
+        log(f"spawn level {level} ({R} rays): {ms['mat']:.4f} ms with 4 "
+            f"'mat' planes, {ms['full']:.4f} ms with 6 'full' planes; plain "
+            f"{p_ms:.1f} ms")
+        out[f"level{level}"] = dict(rays=R, err=err, ms_mat=ms["mat"],
+                                    ms_full=ms["full"], plain_ms=p_ms)
+    # render(16) in turns: full, mat, mat, full (same draws every time)
+    films, secs = [], {"full": [], "mat": []}
+    counts = None
+    for fmt in ("full", "mat", "mat", "full"):
+        install_records(rt, fmt)
+        set_counts(timing=False)
+        film, s = render_fresh(rt, 16, seed=31)
+        c, _ = read_counts()
+        if fmt == "mat":
+            counts = c
+        films.append(film)
+        secs[fmt].append(s)
+    install_records(rt, "full")
+    differ = [int((f != films[0]).sum()) for f in films]
+    log(f"render(16) thai2 1024x1024 in turns (full, mat, mat, full): "
+        f"{secs['full'][0]:.4f} / {secs['mat'][0]:.4f} / {secs['mat'][1]:.4f}"
+        f" / {secs['full'][1]:.4f} s; film values differing from the "
+        f"first: {differ}; launches with 'mat' records: {counts}")
+    assert counts == {"bvh_spawn": 6, "bvh_shadow_shade": 6,
+                      "bvh_closest": 0, "cluster_closest": 0}, counts
+    assert differ == [0, 0, 0, 0], "'mat' render differs from 'full'"
+    assert float(films[0].sum()) > 0
+    out["render16"] = dict(seconds=secs, differing=differ, launches=counts)
+    # a textured scene: ico3_tex at 256x256, 2 spp
+    rt_tex = rtx.create_raytracer_from_file(
+        os.path.join(REPO, "data", "ico3_tex.dae"), width=256, height=256)
+    films = {}
+    for fmt in ("full", "mat"):
+        install_records(rt_tex, fmt)
+        assert rt_tex.intersector.fused_has_textures
+        films[fmt], _ = render_fresh(rt_tex, 2, seed=32)
+    n = int((films["mat"] != films["full"]).sum())
+    log(f"render(2) ico3_tex 256x256 (textured): {n} of "
+        f"{films['full'].numel()} film values differ between 'mat' and "
+        "'full'")
+    assert n == 0 and float(films["full"].sum()) > 0
+    out["textured"] = dict(differing=n, values=films["full"].numel())
+    rec["mat"] = out
+    return out
+
+
+def cli_run(argv, what):
+    """raytracer_tpu_torch.cli.main(argv) in this process: its exit code,
+    printed lines, launch counts, the wall time and the kernels' summed
+    CUDA-event time (ms)."""
+    import contextlib
+    import io
+    import torch
+    from raytracer_tpu_torch import cli
+    buf = io.StringIO()
+    set_counts(timing=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, times = read_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {what}: {line}")
+    assert code == 0, f"{what} exited {code}"
+    kernel_ms = sum(ms for lst in times.values() for ms, _ in lst)
+    return lines, counts, secs, kernel_ms
+
+
+def phase_cli(rec):
+    """`python -m raytracer_tpu_torch.cli` at its defaults on thai2
+    (1024x768, -m 70, 2 bounces) for one full progressive pass (16
+    frames of 50 rows), then --accel cluster for 2 frames."""
+    import numpy as np
+    from raytracer_tpu_torch.utils.png_io import decode_png
+    out_dir = os.path.join(REPO, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    png = os.path.join(out_dir, "cli.png")
+    if os.path.exists(png):
+        os.remove(png)
+    frames = 16
+    lines, counts, secs, kernel_ms = cli_run(
+        ["-f", os.path.join(REPO, "data", "thai2.dae"), "-i", str(frames),
+         "--out", png], "cli")
+    fps = [float(line.split()[1]) for line in lines
+           if line.startswith("fps:")]
+    rays = [int(line.split()[-1]) for line in lines
+            if line.startswith("fps:")]
+    assert len(fps) == frames, lines
+    # each progressive frame is one fused wavefront: 3 levels
+    want = {"bvh_spawn": 3 * frames, "bvh_shadow_shade": 3 * frames,
+            "bvh_closest": 0, "cluster_closest": 0}
+    assert counts == want, counts
+    with open(png, "rb") as f:
+        data = f.read()
+    try:
+        from PIL import Image
+        img = np.asarray(Image.open(png))
+    except ImportError:
+        img = decode_png(data)
+    assert img.shape == (768, 1024, 3) and img.max() > 0, img.shape
+    frame_s = [1.0 / x for x in fps]
+    mrays = sum(rays) / len(rays) / 1e6
+    log(f"cli: {frames} frames, {secs:.3f} s in all (scene load and BVH "
+        f"build included); per frame {min(frame_s) * 1e3:.3f}-"
+        f"{max(frame_s) * 1e3:.3f} ms, mean {np.mean(frame_s) * 1e3:.3f} ms, "
+        f"{mrays:.4f} primary Mrays/s (the CLI's own mean of frames); "
+        f"kernels {kernel_ms / frames:.3f} ms a frame (CUDA events); "
+        f"launches {counts}; PNG {len(data)} B")
+    res = dict(seconds=secs, frame_ms=[s * 1e3 for s in frame_s],
+               mrays_mean=mrays, kernel_ms_per_frame=kernel_ms / frames,
+               launches=counts, png_bytes=len(data))
+    lines, counts, secs, kernel_ms = cli_run(
+        ["-f", os.path.join(REPO, "data", "thai2.dae"), "-i", "2",
+         "--accel", "cluster", "--out", png], "cli --accel cluster")
+    assert counts == {"bvh_spawn": 0, "bvh_shadow_shade": 0,
+                      "bvh_closest": 0, "cluster_closest": 12}, counts
+    log(f"cli --accel cluster -i 2: {secs:.3f} s, kernels "
+        f"{kernel_ms / 2:.3f} ms a frame, launches {counts}")
+    res["cluster"] = dict(seconds=secs, kernel_ms_per_frame=kernel_ms / 2,
+                          launches=counts)
+    rec["cli"] = res
+    return res
+
+
+INVERSE_FIELDS = ("mat_diffuse_rgb", "tri_verts")
+
+
+def inverse_setup(dev, size):
+    """Inverse rendering of ico3_tex at size x size, 1 spp, 2 bounces,
+    brute force on `dev`: the target from the true scene, the start at
+    albedo 0.5 with vertices perturbed by a seeded 1e-3, Adam over
+    INVERSE_FIELDS.  Returns step() -> (loss, {field: gradient}), one
+    step with the target's draws."""
+    import numpy as np
+    import torch
+    from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
+    from raytracer_tpu_torch.diff.gradients import render_pixels
+    from raytracer_tpu_torch.diff.inverse import (extract_params,
+                                                  make_train_step,
+                                                  merge_params)
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    scene = ColladaLoader.from_file(os.path.join(REPO, "data",
+                                                 "ico3_tex.dae"),
+                                    width=size, height=size, verbose=False)
+    sa = scene.to_buffers().to_device(dev)
+    cam = scene.cameras[0].params(dev)
+    px = torch.arange(size, device=dev).repeat(size)
+    py = torch.arange(size, device=dev).repeat_interleave(size)
+    brute = BruteForceIntersector()
+    with torch.no_grad():
+        target = render_pixels(sa, cam, px, py, NumpyDraws(11, dev), size,
+                               size, brute, recursions=2)
+    noise = np.random.default_rng(12).standard_normal(
+        tuple(sa.tri_verts.shape)).astype(np.float32)
+    start = merge_params(sa, {
+        "mat_diffuse_rgb": torch.full_like(sa.mat_diffuse_rgb, 0.5),
+        "tri_verts": sa.tri_verts + 1e-3 * torch.from_numpy(noise).to(dev)})
+    params = extract_params(start, INVERSE_FIELDS)
+    opt = torch.optim.Adam([
+        {"params": [params["mat_diffuse_rgb"]], "lr": 5e-2},
+        {"params": [params["tri_verts"]], "lr": 1e-4}])
+    train = make_train_step(opt, cam, px, py, size, size, brute, target,
+                            recursions=2)
+
+    def step():
+        _, loss = train(params, start, NumpyDraws(11, dev))
+        return float(loss), {k: v.grad for k, v in params.items()}
+    return step
+
+
+def inverse_run(dev, size, steps):
+    """`steps` steps of `inverse_setup(dev, size)`: the losses, seconds
+    per step and the first step's gradients (numpy)."""
+    import torch
+    step = inverse_setup(dev, size)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
+    losses, secs, grads = [], [], None
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        loss, g = step()
+        sync()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if grads is None:
+            grads = {k: v.detach().cpu().numpy() for k, v in g.items()}
+    return losses, secs, grads
+
+
+def phase_inverse(rec):
+    """Inverse rendering (BASELINE config #5) on the card at 1024x1024,
+    3 steps; the first step's gradients at 64x64 on the card against the
+    CPU's; the autograd guard of a BVH intersector."""
+    import numpy as np
+    import torch
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.diff.gradients import scene_grads
+    dev = torch.device("cuda")
+    set_counts(timing=False)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, _ = inverse_run(dev, 1024, 3)
+    peak = torch.cuda.max_memory_allocated()
+    counts, _ = read_counts()
+    log(f"inverse rendering ico3_tex 1024x1024, 1 spp, 2 bounces, brute "
+        f"force: losses {losses}, seconds per step {secs}, peak {peak} B "
+        f"allocated; kernel launches {counts}")
+    assert all(np.isfinite(losses)) and losses[0] > 0
+    assert losses[1] < losses[0] and losses[2] < losses[1], losses
+    assert sum(counts.values()) == 0, counts
+    out = dict(losses=losses, step_seconds=secs, peak_bytes=peak)
+    (lk,), _, gk = inverse_run(dev, 64, 1)
+    (lc,), _, gc = inverse_run(torch.device("cpu"), 64, 1)
+    errs = {}
+    for k in INVERSE_FIELDS:
+        scale = float(np.abs(gc[k]).max())
+        assert np.isfinite(gk[k]).all() and scale > 0, k
+        rel = np.abs(gk[k] - gc[k]) / (1e-3 * np.abs(gc[k]) + 1e-5 * scale)
+        errs[k] = float(rel.max())
+    log(f"inverse step 64x64, card vs CPU: loss {lk} vs {lc}; gradient "
+        f"error / tolerance (rtol 1e-3, atol 1e-5 of the largest) {errs}")
+    assert abs(lk - lc) <= 1e-5 * abs(lc), (lk, lc)
+    assert max(errs.values()) <= 1.0, errs
+    out.update(loss64=(lk, lc), grad_err_over_tol=errs)
+    rt = rtx.create_raytracer_from_file(
+        os.path.join(REPO, "data", "ico3_tex.dae"), width=64, height=64)
+    px = torch.arange(64, device=dev).repeat(64)
+    try:
+        scene_grads(rt.scene_arrays, rt.camera.params(dev), px, px,
+                    NumpyDraws(1, dev), 64, 64, rt.intersector,
+                    torch.zeros((64, 3), device=dev))
+        raise AssertionError("a BVH intersector ran under autograd")
+    except ValueError as e:
+        assert "brute" in str(e), e
+        log(f"BVH intersector under autograd raises: {e}")
+    rec["inverse"] = out
+    return out
+
+
+def phase_viewer(rec):
+    """The viewer over create_inline_raytracer (1024x768, fused BVH) on a
+    free local port: 3 frames, /frame.png, /stats, /key/w, shut down."""
+    import json as json_
+    import urllib.request
+    from raytracer_tpu_torch.inline_scene import create_inline_raytracer
+    from raytracer_tpu_torch.utils.png_io import decode_png
+    from raytracer_tpu_torch.viewer import Viewer
+
+    def get(path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{viewer.port}{path}", timeout=60) as r:
+            return r.read()
+
+    def wait(cond, what):
+        end = time.monotonic() + 120
+        while not cond():
+            assert viewer.error is None, viewer.error
+            assert time.monotonic() < end, f"viewer: no {what}"
+            time.sleep(0.01)
+
+    rt = create_inline_raytracer()
+    set_counts(timing=False)
+    t0 = time.perf_counter()
+    viewer = Viewer(rt, port=0).start(serve=True)
+    try:
+        wait(lambda: viewer.state["frames"] >= 3, "3 frames")
+        img = decode_png(get("/frame.png"))
+        stats = json_.loads(get("/stats"))
+        assert img.shape == (768, 1024, 3) and img.max() > 0, img.shape
+        assert stats["frames"] >= 1, stats
+        assert get("/key/w") == b"ok"
+        wait(lambda: rt.camera.x_angle_radians != 0.0, "key")
+    finally:
+        viewer.close()
+    secs = time.perf_counter() - t0
+    counts, _ = read_counts()
+    assert viewer.error is None, viewer.error
+    frames = viewer.state["frames"]
+    samples = float(rt.film.num_samples.sum())
+    log(f"viewer on port {viewer.port}: {frames} frames in {secs:.3f} s, "
+        f"stats {stats}, frame PNG {img.shape}, film samples after the "
+        f"key {samples:.0f}; launches {counts}")
+    assert samples <= (frames - 3) * rt.rows_per_frame * rt.width
+    assert counts["bvh_spawn"] == counts["bvh_shadow_shade"] == 3 * frames
+    rec["viewer"] = dict(frames=frames, seconds=secs, stats=stats,
+                         launches=counts)
+
+
+def phase_profile(what, fn, rec):
+    """torch.profiler over one call of `fn` (a render, a progressive
+    frame, a train step): device time by kernel and the device's busy
+    share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt.render(spp)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.device_time_total / 1e3, e.count)
@@ -890,7 +1264,7 @@ def phase_profile(what, rt, spp, rec):
                and e.device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
-    log(f"profile {what} render({spp}): wall {wall_ms:.3f} ms, device busy "
+    log(f"profile {what}: wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f} %)")
     for name, ms, n in kernels[:15]:
         log(f"  {ms:9.3f} ms  {n:4d}x  {name[:100]}")
@@ -904,7 +1278,9 @@ def main(argv):
     ap.add_argument("--quick", action="store_true",
                     help="build and compare the kernels at a small size only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one render(8) by kernel")
+                    help="also profile by kernel a fused render(8), a "
+                         "cluster render(2), a CLI frame and an inverse "
+                         "rendering step")
     ap.add_argument("--json", metavar="PATH",
                     help="write everything measured to PATH")
     args = ap.parse_args(argv)
@@ -949,9 +1325,22 @@ def main(argv):
     launches, per_launch = phase_main(rt, rec)
     n_cluster, cluster_times, rt_cluster = phase_cluster_main(rec)
     n_bvh, bvh_times = phase_bvh_trace(rt, rec)
+    mat = phase_mat(rt, rec)
+    phase_cli(rec)
+    phase_inverse(rec)
+    phase_viewer(rec)
     if args.profile:
-        phase_profile("fused", rt, 8, rec)
-        phase_profile("cluster", rt_cluster, 2, rec)
+        phase_profile("fused render(8)", lambda: rt.render(8), rec)
+        phase_profile("cluster render(2)", lambda: rt_cluster.render(2), rec)
+        rt_cli = rtx.create_raytracer_from_file(
+            os.path.join(REPO, "data", "thai2.dae"))     # the CLI's defaults
+        rt_cli.trace_frame_additive()                     # warm-up
+        phase_profile("CLI progressive frame (1024x768, tpl 70)",
+                      rt_cli.trace_frame_additive, rec)
+        step = inverse_setup(torch.device("cuda"), 1024)
+        step()                                            # warm-up
+        phase_profile("inverse step (ico3_tex 1024x1024, brute force)",
+                      step, rec)
 
     common = dict(route="cuda", library_ms=None)
     kernels = []
@@ -977,6 +1366,11 @@ def main(argv):
             "tests_run_per_ray": [lv["tests_run"] / lv["rays"]
                                   for lv in c["levels"]],
             "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
+        if name == "spawn":
+            kernels[-1]["mat_records_ms"] = {
+                f"level {i}": mat[f"level{i}"]["ms_mat"] for i in (0, 1)}
+            kernels[-1]["max_abs_err"] = max(
+                c["err"], *(mat[f"level{i}"]["err"] for i in (0, 1)))
     for name, source, replaces, n, times in (
             ("bvh_closest", "raytracer_tpu_torch/csrc/cuda_bvh.cu",
              "raytracer_tpu/ops/pallas_bvh.py:411", n_bvh, bvh_times),

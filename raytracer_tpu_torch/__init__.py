@@ -18,6 +18,7 @@ from raytracer_tpu_torch.core.engine import (DEFAULT_TRIANGLES_PER_LEAF,
                                              RayTracer, TorchDraws)
 from raytracer_tpu_torch.core.intersectors import make_intersector
 from raytracer_tpu_torch.models.collada import ColladaLoader, SceneLoadError
+from raytracer_tpu_torch.utils import stats
 
 __version__ = "0.1.0"
 
@@ -52,4 +53,5 @@ __all__ = [
     "create_raytracer",
     "create_raytracer_from_file",
     "make_intersector",
+    "stats",
 ]

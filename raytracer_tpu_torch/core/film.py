@@ -35,6 +35,13 @@ class Film:
         self.num_samples.index_add_(
             0, idx, torch.ones_like(radiance[:, 0]))
 
+    def add_full_frame(self, radiance, n_per_pixel):
+        """Dense accumulation when every pixel got `n_per_pixel` samples
+        (film.py:37-42, no scatter).  radiance: (size, 3)."""
+        self.pixel_sum += radiance
+        self.pixel_sum_sq += radiance * radiance
+        self.num_samples += n_per_pixel
+
     def get_pixels(self):
         """Mean radiance (film.rs:43-48).  Unsampled pixels are NaN, like
         the reference's 1/0 multiply; the tonemap/pack stage maps them to

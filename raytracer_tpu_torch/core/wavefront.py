@@ -23,7 +23,8 @@ Two forms compute the same radiance:
   (ops/cuda_bvh.py): per level ONE closest-hit + spawn kernel (shadow
   rays, child rays and their sort keys built in its epilogue) and ONE
   occlusion + radiance kernel, the glue between them only the child
-  sort, the canonical draws and the per-level radiance unsort.
+  sort, the canonical draws, the per-level diffuse resolution ("full" or
+  "mat" records, the texel fetch) and the radiance unsort.
 
 Random draws come from a pluggable per-sample stream with a method
 `normal(level, n) -> (n, 3)` float32 tensor.  Gaussians are drawn per
@@ -46,6 +47,7 @@ from raytracer_tpu_torch.core.shade import (finish_shade, prepare_shade,
 from raytracer_tpu_torch.ops.cuda_bvh import (ALIVE_LIMIT, HIT_OFFSET,
                                               SHADOW_T_MAX, SHADOW_T_MIN,
                                               sort_key)
+from raytracer_tpu_torch.ops.cuda_build import refuse_autograd
 
 # Compile-time knobs of the reference render loop (mod.rs:81-82).
 RECURSIONS = 2
@@ -55,13 +57,27 @@ SORT_KEY_MODES = ("dir6", "dir9", "dirmajor", "posmajor")
 SORT_PAYLOADS = ("ride", "gather")
 
 
-def _texel_colors(scene, rec, u, v):
-    """Diffuse colour planes (3, N) of a textured level: the texel at the
-    barycentric (u, v) where the record's tex id is >= 0, the flat colour
-    elsewhere (mod.rs:244-247, texture.rs:21-27)."""
-    tid = rec[6].to(torch.int32)
-    return torch.where((tid >= 0)[None, :], texel(scene, tid, u, v).t(),
-                       rec[3:6])
+def _level_colors(scene, isect, sres):
+    """Diffuse colour planes (3, N) of a fused level from the spawn
+    kernel's winning records (wavefront.py:399-441): "full" records carry
+    the diffuse rgb (and tex id); "mat" records carry the material id,
+    which gathers both from the scene's per-material tables.  On a
+    textured scene the texel at the barycentric (u, v) replaces the flat
+    colour where the tex id is >= 0 (mod.rs:244-247, texture.rs:21-27).
+    The planes come back contiguous, as the shadow-shade kernel takes
+    them."""
+    rec = sres["rec"]
+    if isect.rec_format == "mat":
+        mid = rec[3].long()
+        rgb = scene.mat_diffuse_rgb[mid].t()
+        tid = scene.mat_tex_id[mid] if isect.fused_has_textures else None
+    else:
+        rgb = rec[3:6]
+        tid = rec[6].to(torch.int32) if isect.fused_has_textures else None
+    if tid is not None:
+        rgb = torch.where((tid >= 0)[None, :],
+                          texel(scene, tid, sres["u"], sres["v"]).t(), rgb)
+    return rgb.contiguous()
 
 
 def _shadow(isect, scene, ctx, shadow_alive):
@@ -78,10 +94,9 @@ def _shadow(isect, scene, ctx, shadow_alive):
 
 def _unsort_radiance(rad, orig):
     """Fold sorted per-ray radiance (N, 3) back to original order: ray k
-    of the sorted level came from original position orig[k]."""
-    out = torch.empty_like(rad)
-    out[orig] = rad
-    return out
+    of the sorted level came from original position orig[k].  Out of
+    place, so gradients reach `rad`."""
+    return torch.empty_like(rad).index_put((orig,), rad)
 
 
 def _child_index(perm_total, b):
@@ -219,9 +234,14 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
     of the payload columns.  `sort_payload` is kept for parity with the
     reference: "ride" and "gather" run this same code, which is what the
     reference's own two forms compute bit for bit.
+
+    The fused kernels have no backward, so this path raises under
+    autograd (`cuda_build.refuse_autograd`); `trace_radiance` over the
+    brute-force intersector is the differentiable one.
     """
     if sort_payload not in SORT_PAYLOADS:
         raise ValueError(f"unknown sort_payload {sort_payload!r}")
+    refuse_autograd("trace_radiance_fused", origins, dirs, scene=scene)
     R0 = origins.shape[0]
     assert R0 % pool == 0 and len(streams) == pool
     L = scene.light_pos.shape[0]
@@ -251,12 +271,8 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
 
         sres = isect.spawn(rays, gauss, scene.light_pos, children=b,
                            key_mode=sort_key_mode if kernel_keys else "none")
-        rec = sres["rec"]
-        if isect.fused_has_textures:
-            color = _texel_colors(scene, rec, sres["u"], sres["v"])
-        else:
-            color = rec[3:6]
-        rad = isect.shadow_shade(sres["shadow"], rec[0:3], color,
+        rad = isect.shadow_shade(sres["shadow"], sres["rec"][0:3],
+                                 _level_colors(scene, isect, sres),
                                  rays[3:6], scene.light_color)
         if L > 1:
             rad = rad.view(3, L, n_rays).sum(dim=1)

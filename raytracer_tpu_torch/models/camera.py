@@ -36,6 +36,18 @@ class CameraParams:
     max_x: torch.Tensor
     max_y: torch.Tensor
 
+    @classmethod
+    def from_numpy(cls, fields, device=None) -> "CameraParams":
+        """`fields`: a mapping (or object with attributes) of array-likes
+        named rot, origin, max_x, max_y, e.g. the numpy values of the JAX
+        package's CameraParams; float32 tensors on `device`."""
+        dev = resolve_device(device)
+        get = (fields.__getitem__ if isinstance(fields, dict)
+               else lambda n: getattr(fields, n))
+        return cls(**{n: torch.from_numpy(
+                          np.array(get(n), dtype=np.float32)).to(dev)
+                      for n in ("rot", "origin", "max_x", "max_y")})
+
 
 class Camera:
     """Interactive camera state (host side).

@@ -12,13 +12,15 @@ with ``--fmad=false``: no a*b+c is contracted, so each operation rounds
 on its own, as in the plain PyTorch versions beside every kernel.
 
 Also the wrappers' shared checks: operands on one CUDA device and
-contiguous, launch errors raised, optional CUDA-event timing.
+contiguous, launch errors raised, optional CUDA-event timing, and the
+intersectors' refusal of autograd.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import os
 import shutil
@@ -160,6 +162,25 @@ def check_cuda(name, *tensors):
                              f"CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def refuse_autograd(name, *tensors, scene=None):
+    """Raise a ValueError when grad mode is on and an operand, or a tensor
+    of `scene` (a SceneArrays), requires grad.  A kernel intersector runs
+    CUDA kernels (or, on the CPU, their plain versions over its own copy
+    of the triangles) with no backward, so gradients through it would be
+    silently zero; the brute-force intersector is the differentiable
+    path."""
+    if not torch.is_grad_enabled():
+        return
+    if dataclasses.is_dataclass(scene):
+        tensors += tuple(getattr(scene, f.name)
+                         for f in dataclasses.fields(scene))
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} has no backward (its kernels and its copy of the "
+            "triangles carry no gradient); render with accel=\"brute\", the "
+            "differentiable path, or run under torch.no_grad()")
 
 
 def event(wrapper):

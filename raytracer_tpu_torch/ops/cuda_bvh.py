@@ -55,7 +55,8 @@ from raytracer_tpu_torch.ops import cuda_build
 from raytracer_tpu_torch.ops.bvh import build_bvh2
 from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 counted, cuda_stream, event,
-                                                ptr, raise_on)
+                                                ptr, raise_on,
+                                                refuse_autograd)
 
 DEFAULT_RAY_BLOCK = 128      # CUDA threads per block (one ray each)
 # what an invalid-value error of a walking kernel means
@@ -340,7 +341,8 @@ def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
 
     rays (6, R) f32; gauss (3*children, R) f32 canonical draws;
     light_pos (L, 3) f32; rec (n_rec, NL*C) f32 shading-record planes
-    [normal xyz, diffuse rgb (, tex id)]; world_lo / world_inv_span:
+    [normal xyz, diffuse rgb (, tex id)] or [normal xyz, material id]
+    (the epilogue reads the normal only); world_lo / world_inv_span:
     3 floats each (float32 values) for the sort key.
     tests_out: optional (R,) int32 that receives, per ray, the number of
     ray-triangle tests its warp ran (kernel only).
@@ -568,8 +570,9 @@ def hit_dict(res, perm):
 class BVHIntersector:
     """The packed two-level BVH on one device (pallas_bvh.BVHIntersector):
     the fused kernels (`spawn`, `shadow_shade`) and the generic closest
-    hit (`query`, `closest`, `shadow`) of the composable wavefront.  The
-    compact "mat" record format is not ported."""
+    hit (`query`, `closest`, `shadow`) of the composable wavefront.  It
+    has no backward: every entry raises under autograd (see
+    `cuda_build.refuse_autograd`)."""
 
     name = "bvh"
 
@@ -628,44 +631,71 @@ class BVHIntersector:
         self.world_lo = tuple(float(x) for x in lo)
         self.world_inv_span = tuple(float(x) for x in inv)
         self.shade_planes = None
+        self.rec_format = "full"
+        self._rec_textured = None
         self.exact_order = None
         self.stream = False
 
-    def set_shade_records(self, records, fmt: str = "full"):
-        """Install packed per-slot shading records (S, 6|7) — columns
-        [normal(3), diffuse(3)[, tex_id]], e.g. shade.build_slot_records —
-        as (n, S) planes for the spawn kernel's winning-record epilogue.
-        The compact "mat" format is not ported."""
-        if fmt != "full":
-            raise NotImplementedError(f"record format {fmt!r}")
+    def set_shade_records(self, records, fmt: str = "full",
+                          textured: bool | None = None):
+        """Install packed per-slot shading records (S, n), e.g. columns of
+        shade.build_slot_records, as (n, S) planes for the spawn kernel's
+        winning-record epilogue (pallas_bvh.py:561-584).
+
+        fmt="full": columns [normal(3), diffuse(3)[, tex_id]], 6 or 7.
+        fmt="mat": columns [normal(3), material id] (build_slot_records
+        columns 0, 1, 2, 7); the wavefront resolves the diffuse rgb (and
+        the tex id) from the scene's per-material tables.  `textured` says
+        whether the scene has textures, i.e. whether the spawn kernel must
+        emit u/v for the texel fetch; "mat" requires it, since a 4-column
+        record cannot tell, and guessing "no" renders a textured scene
+        flat."""
+        if fmt not in ("full", "mat"):
+            raise ValueError(f"unknown record format {fmt!r}")
         records = torch.as_tensor(records, dtype=torch.float32)
-        if records.shape[0] != self.packed.num_slots or \
-                records.shape[1] not in (6, 7):
-            raise ValueError(f"records {tuple(records.shape)} for "
+        widths = (4,) if fmt == "mat" else (6, 7)
+        if records.dim() != 2 or records.shape[0] != self.packed.num_slots \
+                or records.shape[1] not in widths:
+            raise ValueError(f"{fmt!r} records {tuple(records.shape)} for "
                              f"{self.packed.num_slots} slots")
+        if fmt == "mat" and textured is None:
+            raise ValueError('set_shade_records(fmt="mat") needs textured= '
+                             "(whether the scene has textures)")
         self.shade_planes = records.to(self.device).t().contiguous()
+        self.rec_format = fmt
+        self._rec_textured = None if textured is None else bool(textured)
 
     @property
     def supports_fused_spawn(self) -> bool:
-        return self.shade_planes is not None
+        """Whole-level fusion: 4 "mat" record planes or 6/7 "full" ones."""
+        if self.shade_planes is None:
+            return False
+        n = self.shade_planes.shape[0]
+        return n == 4 if self.rec_format == "mat" else n in (6, 7)
 
     @property
     def supports_fused_shade(self) -> bool:
-        """`query(emit_shade=True)` extracts the winning records in the
-        kernel (trace_radiance's fused_shade path)."""
-        return self.shade_planes is not None
+        """`query(emit_shade=True)` extracts the winning "full" records in
+        the kernel (trace_radiance's fused_shade path)."""
+        return self.shade_planes is not None and self.rec_format == "full"
 
     @property
     def fused_has_textures(self) -> bool:
         """True when the wavefront fetches texels between spawn and
-        shadow_shade (7 record planes; the spawn kernel then emits u/v)."""
-        return self.shade_planes is not None and self.shade_planes.shape[0] == 7
+        shadow_shade (the spawn kernel then emits u/v): `textured` for
+        "mat" records, 7 planes for "full" ones."""
+        if self.shade_planes is None:
+            return False
+        if self.rec_format == "mat":
+            return self._rec_textured
+        return self.shade_planes.shape[0] == 7
 
     def spawn(self, rays, gauss, light_pos, children: int,
               key_mode: str = "dir6"):
         """Fused closest + shadow-ray + child-ray construction (see
         `bvh_spawn`)."""
         assert self.shade_planes is not None, "set_shade_records() first"
+        refuse_autograd("BVHIntersector.spawn", rays, gauss, light_pos)
         return bvh_spawn(rays, gauss, light_pos, self.packed,
                          self.shade_planes, world_lo=self.world_lo,
                          world_inv_span=self.world_inv_span,
@@ -675,6 +705,8 @@ class BVHIntersector:
 
     def shadow_shade(self, shadow_rays, normal, color, view, light_color):
         """Fused occlusion + Phong radiance (see `bvh_shadow_shade`)."""
+        refuse_autograd("BVHIntersector.shadow_shade", shadow_rays, normal,
+                        color, view, light_color)
         return bvh_shadow_shade(shadow_rays, normal, color, view,
                                 light_color, self.packed,
                                 ray_block=self.ray_block)
@@ -691,8 +723,9 @@ class BVHIntersector:
         miss.  With emit_shade=True (after set_shade_records) the hit
         dict also carries the winning triangle's records as "rec"
         (R, n_rec), extracted in the kernel."""
-        assert not emit_shade or self.shade_planes is not None, \
-            "emit_shade requires set_shade_records()"
+        assert not emit_shade or self.supports_fused_shade, \
+            "emit_shade requires full-format set_shade_records()"
+        refuse_autograd("BVHIntersector.query", origins, dirs, scene=scene)
         res = self._closest(rays_from(origins, dirs, alive),
                             self.shade_planes if emit_shade else None,
                             t_limit)
@@ -706,6 +739,7 @@ class BVHIntersector:
         """Windowed-closest occlusion (mod.rs:224-230): blocked iff the
         closest hit lands strictly inside (t_min, t_max).  Culling past
         t_max cannot change the outcome."""
+        refuse_autograd("BVHIntersector.shadow", origins, dirs, scene=scene)
         t = self._closest(rays_from(origins, dirs, alive), t_limit=t_max,
                           shadow=True)["t"]
         return (t < BIG_T) & (t > t_min) & (t < t_max)

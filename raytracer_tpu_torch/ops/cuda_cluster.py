@@ -35,7 +35,8 @@ from raytracer_tpu_torch.ops import cuda_build
 from raytracer_tpu_torch.ops.cluster import build_cluster_grid
 from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 counted, cuda_stream, event,
-                                                ptr, raise_on)
+                                                ptr, raise_on,
+                                                refuse_autograd)
 from raytracer_tpu_torch.ops.cuda_bvh import (DEFAULT_RAY_BLOCK,
                                               SHADOW_T_MAX, SHADOW_T_MIN,
                                               closest_plain, hit_dict,
@@ -228,7 +229,10 @@ class ClusterIntersector:
 
     def query(self, scene, origins, dirs, alive=None, t_limit=None):
         """Generic closest hit of (R, 3) rays with a t limit (shadow
-        queries pass the window maximum); dead rays (alive False) miss."""
+        queries pass the window maximum); dead rays (alive False) miss.
+        Raises under autograd (`cuda_build.refuse_autograd`)."""
+        refuse_autograd("ClusterIntersector.query", origins, dirs,
+                        scene=scene)
         res = cluster_closest(rays_from(origins, dirs, alive), self.packed,
                               t_limit=t_limit, ray_block=self.ray_block)
         return hit_dict(res, self.perm)

@@ -138,12 +138,21 @@ def test_closest_kernels_match_plain(card, kind):
 MAX_TIES = 1
 
 
-def _fused(card, tris, tpl=128, n_rec=6, seed=0):
-    """A BVH intersector on the card with random shading records."""
+def _fused(card, tris, tpl=128, n_rec=6, seed=0, textured=None):
+    """A BVH intersector on the card with random shading records: "full"
+    records of `n_rec` planes, or with `textured` given, "mat" records
+    (4 planes, the last a material id in 0..4)."""
     isect = BVHIntersector(_Buffers(tris), triangles_per_leaf=tpl,
                            device=card)
     rng = np.random.default_rng(seed)
+    if textured is not None:
+        n_rec = 4
     rec = rng.uniform(-1, 1, (isect.packed.num_slots, n_rec))
+    if textured is not None:
+        rec[:, 3] = rng.integers(0, 5, isect.packed.num_slots)
+        isect.set_shade_records(torch.from_numpy(rec.astype(np.float32)),
+                                fmt="mat", textured=textured)
+        return isect
     if n_rec == 7:
         rec[:, 6] = -1.0                     # texture id: none
     isect.set_shade_records(torch.from_numpy(rec.astype(np.float32)))
@@ -162,7 +171,7 @@ def _fused_check(card, isect, o, d, b=1, L=1, seed=1):
     lp = lp.to(card)
     planes = isect.shade_planes
     kw = dict(world_lo=isect.world_lo, world_inv_span=isect.world_inv_span,
-              children=b, emit_uv=planes.shape[0] == 7, key_mode="dir6")
+              children=b, emit_uv=isect.fused_has_textures, key_mode="dir6")
     rows = torch.full((R,), -1, dtype=torch.int32, device=card)
     got = cuda_bvh.bvh_spawn(rays, g, lp, isect.packed, planes,
                              tests_out=rows, **kw)
@@ -182,8 +191,14 @@ def _fused_check(card, isect, o, d, b=1, L=1, seed=1):
         assert torch.equal(got["u"][same], want["u"][same])
         assert torch.equal(got["v"][same], want["v"][same])
     lc = torch.from_numpy(rng.uniform(0.2, 1, (L, 3)).astype(np.float32))
-    args = (got["shadow"], got["rec"][0:3], got["rec"][3:6], rays[3:6],
-            lc.to(card))
+    if isect.rec_format == "mat":
+        # the wavefront's gather of a per-material colour table
+        table = torch.from_numpy(rng.uniform(0, 1, (5, 3)).astype(
+            np.float32)).to(card)
+        color = table[got["rec"][3].long()].t().contiguous()
+    else:
+        color = got["rec"][3:6]
+    args = (got["shadow"], got["rec"][0:3], color, rays[3:6], lc.to(card))
     rows_sh = torch.full((L * R,), -1, dtype=torch.int32, device=card)
     rad = cuda_bvh.bvh_shadow_shade(*args, isect.packed, tests_out=rows_sh)
     assert torch.equal(rad, cuda_bvh.bvh_shadow_shade_plain(*args,
@@ -616,3 +631,122 @@ def test_tests_run_cover_tests_needed(card, kind):
         below = n["t"] < (BIG_T if limit is None else limit)
         assert torch.equal(got["t"][below], n["t"][below])
         assert int((below & (got["slot"] != n["slot"])).sum()) <= MAX_TIES
+
+
+# "mat" records: 4 planes [normal, material id]; the epilogue reads the
+# normal only, so the kernels take them unchanged, with u/v when textured.
+
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("case", ["mixed", "ragged", "disjoint", "tpl256",
+                                  "lights2_children2"])
+def test_fused_kernels_mat_records(card, case, textured):
+    """Both fused kernels with 4 "mat" record planes against their plain
+    versions on the risky shapes above: dead rays mixed in, a ragged ray
+    count, rays needing disjoint rows, two staged chunks a row, two
+    lights and two children."""
+    b, L, tpl = 1, 1, 128
+    if case == "disjoint":
+        tris, o, d = _two_sides()
+        b = 0
+    else:
+        tris, o, d = _random(n_rays=1001 if case == "ragged" else 4096)
+    if case == "mixed":
+        o, d = _dead(o, d, slice(None, None, 3))
+    elif case == "tpl256":
+        tpl = 256
+    elif case == "lights2_children2":
+        b, L = 2, 2
+    isect = _fused(card, tris, tpl=tpl, textured=textured)
+    assert isect.supports_fused_spawn and not isect.supports_fused_shade
+    assert isect.fused_has_textures == textured
+    got, _, _ = _fused_check(card, isect, o, d, b=b, L=L)
+    assert got["rec"].shape[0] == 4 and ("u" in got) == textured
+    hit = got["t"] < np.float32(BIG_T)
+    assert bool(hit.any())
+    mid = got["rec"][3][hit]
+    assert bool(((mid >= 0) & (mid < 5) & (mid == mid.round())).all())
+
+
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+def test_kernel_intersectors_refuse_autograd_on_the_card(card, kind):
+    """A CUDA kernel has no backward: queries with rays that require
+    grad raise a ValueError naming accel="brute" and launch nothing;
+    under no_grad the same query runs."""
+    tris, o, d = _random(n_rays=256)
+    isect = _isect(card, kind, tris)
+    wrapper = (cuda_bvh.bvh_closest if kind == "bvh"
+               else cuda_cluster.cluster_closest)
+    before = wrapper.launches
+    og = o.to(card).requires_grad_(True)
+    for call in (isect.query, isect.shadow):
+        with pytest.raises(ValueError, match="brute"):
+            call(None, og, d.to(card))
+    assert wrapper.launches == before
+    with torch.no_grad():
+        isect.query(None, og, d.to(card))
+    assert wrapper.launches == before + 1
+
+
+class _NumpyDraws:
+    """Draws from a seeded numpy generator: the same numbers on any
+    device."""
+
+    def __init__(self, seed, device):
+        self.rng = np.random.default_rng(seed)
+        self.device = device
+
+    def next_sample(self, n):
+        return (torch.from_numpy(self.rng.random((n, 2), dtype=np.float32))
+                .to(self.device), self)
+
+    def normal(self, level, n):
+        return torch.from_numpy(self.rng.standard_normal(
+            (n, 3), dtype=np.float32)).to(self.device)
+
+
+def test_inverse_rendering_step_on_the_card_matches_the_cpu(card):
+    """One train step of inverse rendering (ico3_tex at 64x64, 2 bounces,
+    brute force): from the same perturbed start and the same draws, the
+    loss and the gradients of the optimized leaves on the card equal the
+    CPU's to the CPU tests' tolerance (rtol 1e-3, atol 1e-5 of the
+    largest entry; only the gradient sums' order differs)."""
+    import pathlib
+    from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
+    from raytracer_tpu_torch.diff.gradients import render_pixels
+    from raytracer_tpu_torch.diff.inverse import (extract_params,
+                                                  make_train_step,
+                                                  merge_params)
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    W = H = 64
+    scene = ColladaLoader.from_file(
+        pathlib.Path(__file__).resolve().parent.parent / "data"
+        / "ico3_tex.dae", width=W, height=H, verbose=False)
+    rng = np.random.default_rng(0)
+    noise = rng.standard_normal(scene.to_buffers().tri_verts.shape)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        sa = scene.to_buffers().to_device(dev)
+        cam = scene.cameras[0].params(dev)
+        px = torch.arange(W, device=dev).repeat(H)
+        py = torch.arange(H, device=dev).repeat_interleave(W)
+        with torch.no_grad():
+            target = render_pixels(sa, cam, px, py, _NumpyDraws(1, dev), W,
+                                   H, BruteForceIntersector(), recursions=2)
+        start = merge_params(sa, {
+            "mat_diffuse_rgb": torch.full_like(sa.mat_diffuse_rgb, 0.5),
+            "tri_verts": sa.tri_verts + torch.from_numpy(
+                (1e-3 * noise).astype(np.float32)).to(dev)})
+        params = extract_params(start, ("mat_diffuse_rgb", "tri_verts"))
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+        step = make_train_step(opt, cam, px, py, W, H,
+                               BruteForceIntersector(), target, recursions=2)
+        params, loss = step(params, start, _NumpyDraws(2, dev))
+        out[dev.type] = (float(loss), {k: v.grad.cpu().numpy()
+                                       for k, v in params.items()})
+    (lk, gk), (lc, gc) = out["cuda"], out["cpu"]
+    assert lk == pytest.approx(lc, rel=1e-5) and lc > 0
+    for k in gc:
+        assert np.isfinite(gk[k]).all() and np.abs(gc[k]).max() > 0, k
+        np.testing.assert_allclose(gk[k], gc[k], rtol=1e-3,
+                                   atol=1e-5 * np.abs(gc[k]).max(),
+                                   err_msg=k)

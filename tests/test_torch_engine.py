@@ -144,8 +144,11 @@ def test_import_loads_neither_jax_nor_reference_package():
     names = set(names.split())
     for mod in ("native", "core.intersect", "core.intersectors",
                 "core.sampler", "core.shade", "core.wavefront", "core.engine",
-                "ops.cluster", "ops.cuda_build", "ops.cuda_bvh",
-                "ops.cuda_cluster"):
+                "core.film", "core.tonemap", "ops.cluster", "ops.cuda_build",
+                "ops.cuda_bvh", "ops.cuda_cluster", "cli", "viewer",
+                "inline_scene", "diff.gradients", "diff.inverse",
+                "diff.checkpoint", "utils.stats", "utils.timing",
+                "utils.png_io", "utils.profiling"):
         assert f"raytracer_tpu_torch.{mod}" in names, mod
 
 
