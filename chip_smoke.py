@@ -66,6 +66,20 @@ Phases (any failure raises and exits non-zero):
    g. the viewer over create_inline_raytracer (1024x768) on a free
       local port: 3 frames, /frame.png decodes, /stats, /key/w clears
       the film, then shut down;
+   h. multi-device rendering over NCCL at world size 1 (one card):
+      initialize_distributed (tcp on a free local port) returns True,
+      again True, and make_mesh() has one rank; render_sharded(16) of
+      thai2 at 1024x1024 (fused BVH, pool 8, the row-major pixel_grid
+      order) after a render_sharded(8) warm-up and a cleared film, its
+      launches (6 + 6) and per-level kernel times beside phase a's (16x8
+      tiles), and render(16) in turns (render, sharded, sharded,
+      render); render_sharded of ico3_tex (textured, tpl 70) at 64x64,
+      spp 2, on the card against the CPU from the same numpy-made
+      per-rank draws (at most 3 * EDGE_RAYS values differ); the sharded
+      train step (4boxes 64x64, brute force, 2 bounces, 3 Adam steps over
+      the albedo: loss falling, no kernel launch, the first step equal to
+      the unsharded diff.inverse step within rtol 1e-5); the process
+      group is destroyed whatever happens;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
@@ -133,6 +147,11 @@ class NumpyDraws:
         import torch
         return torch.from_numpy(self.rng.standard_normal(
             (n, 3), dtype=np.float32)).to(self.device)
+
+    def split(self, n):
+        """n sources seeded from this one (one per rank)."""
+        return [NumpyDraws(int(s), self.device)
+                for s in self.rng.integers(0, 2 ** 62, size=n)]
 
 
 def cuda_ms(fn, reps):
@@ -654,11 +673,11 @@ def closest_batches(rt, isect):
     """The closest and shadow batches of levels 0 and 1 of one 1-spp
     trace_radiance wavefront of rt's frame over `isect` (entry()'s
     path): [(name, (6, R) rays)]."""
-    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.engine import TorchStream
     from raytracer_tpu_torch.core.wavefront import trace_radiance
     o, d = frame_rays(rt, seed=2)
     recorder = Recorder(isect)
-    trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(3, "cuda")],
+    trace_radiance(rt.scene_arrays, o, d, [TorchStream(3, "cuda")],
                    recorder, 2, 1)
     return [(f"level {i // 2} {kind}", rays) for i, (kind, rays)
             in enumerate(recorder.calls[:4])]
@@ -864,15 +883,16 @@ def phase_bvh_trace(rt, rec):
     __graft_entry__.entry() runs) at full frame: 1 sample, 2 bounces."""
     import torch
     import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.engine import TorchStream
     from raytracer_tpu_torch.core.wavefront import trace_radiance
     isect = rtx.make_intersector("bvh", rt.scene_buffers)
     assert not isect.supports_fused_spawn
     o, d = frame_rays(rt, seed=8)
-    trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(9, "cuda")],
+    trace_radiance(rt.scene_arrays, o, d, [TorchStream(9, "cuda")],
                    isect, 2, 1)                              # warm-up
     set_counts(timing=True)
     t0 = time.perf_counter()
-    rad = trace_radiance(rt.scene_arrays, o, d, [rtx.TorchDraws(10, "cuda")],
+    rad = trace_radiance(rt.scene_arrays, o, d, [TorchStream(10, "cuda")],
                          isect, 2, 1)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1245,6 +1265,179 @@ def phase_viewer(rec):
                          launches=counts)
 
 
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_train(mesh, dev, steps):
+    """The sharded train step (brute force, 4boxes 64x64, 2 bounces):
+    `steps` Adam steps over the albedo from grey toward the true scene's
+    render, each with the same numpy-made draws; and one step of the
+    unsharded diff.inverse.make_train_step from the same start and
+    draws.  Returns ([sharded losses], first sharded (loss, grad,
+    albedo), unsharded (loss, grad, albedo))."""
+    import dataclasses
+    import torch
+    from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
+    from raytracer_tpu_torch.diff.inverse import (extract_params,
+                                                  make_train_step)
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    from raytracer_tpu_torch.parallel import (make_sharded_render,
+                                              make_sharded_train_step,
+                                              pixel_grid)
+    n = 64
+    scene = ColladaLoader.from_file(os.path.join(REPO, "data", "4boxes.dae"),
+                                    width=n, height=n, verbose=False)
+    sa = scene.to_buffers().to_device(dev)
+    cam = scene.cameras[0].params(dev)
+    px, py, _ = pixel_grid(n, n, pad_to=mesh.size)
+    brute = BruteForceIntersector()
+    with torch.no_grad():
+        target = make_sharded_render(mesh, brute, n, n, recursions=2)(
+            sa, cam, px, py, [NumpyDraws(20, dev)])
+    start = dataclasses.replace(sa, mat_diffuse_rgb=torch.full_like(
+        sa.mat_diffuse_rgb, 0.5))
+
+    def fresh():
+        params = extract_params(start, ("mat_diffuse_rgb",))
+        return params, torch.optim.Adam(list(params.values()), lr=5e-2)
+
+    def result(loss, params):
+        p = params["mat_diffuse_rgb"]
+        return (float(loss), p.grad.detach().cpu().numpy().copy(),
+                p.detach().cpu().numpy().copy())
+
+    params, opt = fresh()
+    step = make_sharded_train_step(mesh, brute, n, n, opt, recursions=2)
+    losses, first = [], None
+    for _ in range(steps):
+        loss, params = step(params, start, cam, px, py, target,
+                            [NumpyDraws(21, dev)])
+        losses.append(float(loss))
+        first = first or result(loss, params)
+    params, opt = fresh()
+    one = make_train_step(opt, cam, torch.from_numpy(px).to(dev),
+                          torch.from_numpy(py).to(dev), n, n, brute, target,
+                          recursions=2)
+    params, loss = one(params, start, NumpyDraws(21, dev))
+    return losses, first, result(loss, params)
+
+
+def phase_sharded(rt, rec, main_per_launch):
+    """h. Multi-device rendering over NCCL at world size 1: the bring-up;
+    render_sharded(16) of thai2 1024x1024 (fused BVH, pool 8) after a
+    render_sharded(8) warm-up and a cleared film, its launch counts and
+    per-level kernel times, and render(16) in turns (render, sharded,
+    sharded, render); render_sharded of ico3_tex (textured, tpl 70) at
+    64x64, spp 2, card against the CPU from the same numpy-made per-rank
+    draws; the sharded train step against the unsharded one.  The
+    process group is destroyed in any case."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    from raytracer_tpu_torch.parallel import (Mesh, initialize_distributed,
+                                              make_mesh)
+    out = {}
+    t_phase = time.perf_counter()
+    assert initialize_distributed(
+        backend="nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0, timeout=120) is True
+    try:
+        assert initialize_distributed() is True
+        mesh = make_mesh()
+        assert mesh.size == 1 and mesh.group is not None, mesh
+        log(f"process group: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, mesh {mesh}")
+        out["backend"] = dist.get_backend()
+
+        t0 = time.perf_counter()
+        rt.render_sharded(8)            # one wavefront at the timed pool
+        torch.cuda.synchronize()
+        log(f"warm-up render_sharded(8): {time.perf_counter() - t0:.3f} s")
+        rt.film.clear()
+        set_counts(timing=True)
+        t0 = time.perf_counter()
+        hdr = rt.render_sharded(16)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, times = read_counts()
+        log(f"launches in render_sharded(16): {counts}")
+        assert counts == {"bvh_spawn": 6, "bvh_shadow_shade": 6,
+                          "bvh_closest": 0, "cluster_closest": 0}, counts
+        assert hdr.shape == (1024, 1024, 3) and np.isfinite(hdr).all()
+        nonblack = float((hdr.sum(-1) > 0).mean())
+        assert nonblack > 0.05, "image is black"
+        mrays = 1024 * 1024 * 16 / secs / 1e6
+        log(f"render_sharded(16) thai2 1024x1024, world size 1 over NCCL: "
+            f"{secs:.4f} s, {mrays:.4f} primary Mrays/s, nonblack "
+            f"{nonblack:.4f}")
+        levels = {}
+        for name in ("bvh_spawn", "bvh_shadow_shade"):
+            for i, (ms, n) in enumerate(times[name]):
+                log(f"  {name} launch {i} (level {i % 3}, {n} rays): "
+                    f"{ms:.3f} ms row-major; in tiles (phase 4a) "
+                    f"{main_per_launch[name.split('_', 1)[1]][i][0]:.3f} ms")
+            levels[name] = [ms for ms, _ in times[name]]
+        out.update(seconds=secs, mrays=mrays, launches=counts,
+                   per_launch_ms=levels)
+
+        def timed_render(fn):
+            rt.film.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(16)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        turns = [timed_render(f) for f in (rt.render, rt.render_sharded,
+                                           rt.render_sharded, rt.render)]
+        log(f"in turns, render / render_sharded / render_sharded / render "
+            f"(16 spp): {turns} s")
+        out["turns_s"] = turns
+
+        scene = ColladaLoader.from_file(
+            os.path.join(REPO, "data", "ico3_tex.dae"), width=64, height=64,
+            verbose=False)
+        films = {}
+        for dev in ("cuda", "cpu"):
+            r = rtx.RayTracer(scene, 64, 64, device=dev,
+                              draws=NumpyDraws(5, dev))
+            m = None if dev == "cuda" else Mesh(1, 0, torch.device("cpu"))
+            films[dev] = r.render_sharded(2, mesh=m)
+        a, b = films["cuda"], films["cpu"]
+        assert np.isfinite(a).all() and a.max() > 0
+        flips = int((~np.isclose(a, b, rtol=2e-4, atol=2e-5)).sum())
+        log(f"render_sharded ico3_tex 64x64 spp 2, cuda vs cpu: {flips} of "
+            f"{a.size} values differ; max |err| {float(np.abs(a - b).max())}")
+        assert flips <= 3 * EDGE_RAYS, "render_sharded disagrees with the CPU"
+        out["compare"] = dict(flips=flips, values=int(a.size))
+
+        set_counts(timing=False)
+        t0 = time.perf_counter()
+        losses, first, one = sharded_train(mesh, torch.device("cuda"), 3)
+        counts, _ = read_counts()
+        log(f"sharded train step (4boxes 64x64, brute force, 2 bounces): "
+            f"losses {losses}; unsharded first step loss {one[0]}; "
+            f"{time.perf_counter() - t0:.2f} s; kernel launches {counts}")
+        assert all(np.isfinite(losses)) and losses[0] > 0
+        assert losses[1] < losses[0] and losses[2] < losses[1], losses
+        assert sum(counts.values()) == 0, counts
+        np.testing.assert_allclose(first[0], one[0], rtol=1e-5)
+        for got, want in zip(first[1:], one[1:]):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+        out["train"] = dict(losses=losses, unsharded_loss=one[0])
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase h: {out['phase_s']:.1f} s")
+    rec["sharded"] = out
+    return out
+
+
 def phase_profile(what, fn, rec):
     """torch.profiler over one call of `fn` (a render, a progressive
     frame, a train step): device time by kernel and the device's busy
@@ -1329,6 +1522,7 @@ def main(argv):
     phase_cli(rec)
     phase_inverse(rec)
     phase_viewer(rec)
+    sharded = phase_sharded(rt, rec, per_launch)
     if args.profile:
         phase_profile("fused render(8)", lambda: rt.render(8), rec)
         phase_profile("cluster render(2)", lambda: rt_cluster.render(2), rec)
@@ -1365,7 +1559,10 @@ def main(argv):
                                           for lv in c["levels"]],
             "tests_run_per_ray": [lv["tests_run"] / lv["rays"]
                                   for lv in c["levels"]],
-            "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]]})
+            "main_path_ms": [round(ms, 4) for ms, _ in per_launch[name]],
+            "launches_render_sharded": sharded["launches"][f"bvh_{name}"],
+            "render_sharded_ms": [round(ms, 4) for ms in
+                                  sharded["per_launch_ms"][f"bvh_{name}"]]})
         if name == "spawn":
             kernels[-1]["mat_records_ms"] = {
                 f"level {i}": mat[f"level{i}"]["ms_mat"] for i in (0, 1)}

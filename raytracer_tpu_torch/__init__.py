@@ -6,16 +6,20 @@ shading with shadow rays, two bounce levels, film and tonemap), with its
 closest-hit and fused wavefront kernels hand-written in CUDA for an
 NVIDIA Hopper card (`ops/cuda_bvh.py`, `ops/cuda_cluster.py`,
 `csrc/`).  `accel` picks the accelerator: "bvh" (default), "cluster"
-or "brute".  Entry points run on `cuda`
-unless the caller passes `device="cpu"`, which runs the kernels' plain
-PyTorch versions.  The package imports neither JAX nor `raytracer_tpu`.
+or "brute".  `RayTracer.render_sharded` and `parallel/` shard the
+pixels over the ranks of a `torch.distributed` group (NCCL between
+cards, gloo between CPU processes); `diff/` differentiates the render.
+Entry points run on `cuda` unless the caller passes `device="cpu"`,
+which runs the kernels' plain PyTorch versions.  The package imports
+neither JAX nor `raytracer_tpu`.
 
 Public facade mirrors the reference library API
 (raytracer_lib/src/lib.rs:15-44).
 """
 
 from raytracer_tpu_torch.core.engine import (DEFAULT_TRIANGLES_PER_LEAF,
-                                             RayTracer, TorchDraws)
+                                             RayTracer, TorchDraws,
+                                             TorchStream)
 from raytracer_tpu_torch.core.intersectors import make_intersector
 from raytracer_tpu_torch.models.collada import ColladaLoader, SceneLoadError
 from raytracer_tpu_torch.utils import stats
@@ -47,6 +51,7 @@ def create_raytracer_from_file(collada_filename,
 __all__ = [
     "RayTracer",
     "TorchDraws",
+    "TorchStream",
     "DEFAULT_TRIANGLES_PER_LEAF",
     "ColladaLoader",
     "SceneLoadError",

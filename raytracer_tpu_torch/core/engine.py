@@ -27,10 +27,13 @@ reference computes the pixel row for ray generation as `idx / height`
 instead of `idx / width` (mod.rs:96).
 
 Random numbers come from a draw source: `next_sample(n)` returns the
-(n, 2) pixel jitter of one sample and that sample's Gaussian stream
-(`normal(level, n) -> (n, 3)`).  The default `TorchDraws` draws both
-from a `torch.Generator` on the render device, seeded from `seed`.
-Public return types are numpy, as in the reference.
+(n, 2) pixel jitter of one sample and that sample's own Gaussian stream
+(`normal(level, n) -> (n, 3)`), and `split(n)` returns `n` independent
+sources (one per rank of `render_sharded`).  The default `TorchDraws`
+gives every sample a stream of its own, so a sample's numbers do not
+depend on how many samples share its wavefront (the reference's key per
+sample, engine.py:240-244, :269-279).  Public return types are numpy, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ from raytracer_tpu_torch.core.wavefront import (RECURSIONS, SORT_KEY_MODES,
                                                 trace_radiance_fused)
 from raytracer_tpu_torch.models.camera import generate_rays
 from raytracer_tpu_torch.models.types import resolve_device
+from raytracer_tpu_torch.parallel.mesh import all_gather_rays, make_mesh
+from raytracer_tpu_torch.parallel.render import (make_sharded_frame_loop,
+                                                 pixel_grid)
 
 # reference: oct_tree_intersector.rs:12
 DEFAULT_TRIANGLES_PER_LEAF = 70
@@ -57,23 +63,66 @@ DEFAULT_TRIANGLES_PER_LEAF = 70
 DEFAULT_POOL = 8
 
 
-class TorchDraws:
-    """The product draw source: jitter and Gaussians from one
-    `torch.Generator` on the render device, seeded from `seed`."""
+_SEED_LIMIT = 2 ** 63 - 1
+
+
+class TorchStream:
+    """One sample's draws: its pixel jitter and each level's Gaussians,
+    every one from a `torch.Generator` of its own on `device`, seeded
+    from the k-th number of a host generator seeded from `seed` (k = 0
+    for the jitter, 1 + level for a level), as the reference splits a
+    sample's key once per level (wavefront.py:352-360).  So the numbers
+    do not depend on the order in which they are asked for."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self._host = torch.Generator()
+        self._host.manual_seed(seed)
+        self._seeds = []
 
-    def next_sample(self, n: int):
-        jitter = torch.rand((n, 2), generator=self.generator,
-                            device=self.device)
-        return jitter, self
+    def _generator(self, k: int):
+        while len(self._seeds) <= k:
+            self._seeds.append(_draw_seed(self._host))
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self._seeds[k])
+        return g
+
+    def jitter(self, n: int):
+        return torch.rand((n, 2), generator=self._generator(0),
+                          device=self.device)
 
     def normal(self, level: int, n: int):
-        return torch.randn((n, 3), generator=self.generator,
+        return torch.randn((n, 3), generator=self._generator(1 + level),
                            device=self.device)
+
+
+def _draw_seed(host) -> int:
+    return int(torch.randint(0, _SEED_LIMIT, (1,), generator=host,
+                             dtype=torch.int64))
+
+
+class TorchDraws:
+    """The product draw source: a host `torch.Generator` seeded from
+    `seed` draws one 63-bit seed per sample, and the sample draws its
+    jitter and Gaussians from a `TorchStream` of that seed on `device`."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self._host = torch.Generator()
+        self._host.manual_seed(seed)
+
+    def next_sample(self, n: int):
+        stream = TorchStream(_draw_seed(self._host), self.device)
+        return stream.jitter(n), stream
+
+    def split(self, n: int):
+        """`n` independent sources: one frame source taken from this one
+        (the reference's `_next_key()`, engine.py:169-171), then `n`
+        taken from the frame source (`jax.random.split(key, n)`,
+        parallel/render.py:33-37)."""
+        frame = TorchDraws(_draw_seed(self._host), self.device)
+        return [TorchDraws(_draw_seed(frame._host), self.device)
+                for _ in range(n)]
 
 
 class RayTracer:
@@ -126,6 +175,7 @@ class RayTracer:
                                                                 self.device)
         self._row_block_cache = {}
         self._frame_pixels = None
+        self._sharded_key = self._sharded_frame = None
 
     @classmethod
     def from_scene(cls, scene, width, height, **kwargs):
@@ -294,9 +344,10 @@ class RayTracer:
         pool = self._choose_pool(spp)
         f = self.film
         for _ in range(spp // pool):
-            radp = self._render_pool(pool)
-            f.pixel_sum += radp.sum(dim=0)
-            f.pixel_sum_sq += (radp * radp).sum(dim=0)
+            # sample by sample, so the film does not depend on the pool
+            for rad in self._render_pool(pool):
+                f.pixel_sum += rad
+                f.pixel_sum_sq += rad * rad
             f.num_samples += float(pool)
         return self.get_hdr()
 
@@ -317,3 +368,37 @@ class RayTracer:
         """Tonemapped uint8 (H, W, 3) image."""
         self.render(spp)
         return self.get_tonemapped_image()
+
+    # -- multi-device rendering (parallel/render.py) ----------------------
+
+    def render_sharded(self, spp: int = 1, mesh=None) -> np.ndarray:
+        """Full-frame render with pixels sharded over the ranks of a mesh
+        (rays data-parallel, scene replicated; default `make_mesh()`).
+        Each rank traces its slice of the row-major `pixel_grid` with
+        its own draws (`self.draws.split(mesh.size)[mesh.rank]`), pooled
+        on the fused path as `render` pools; the per-rank moments are
+        all-gathered over the mesh's process group (none on a mesh
+        without one), so every rank's film holds the whole frame, folded
+        in with a dense add (engine.py:373-411).  The padded pixels are
+        traced and dropped."""
+        mesh = mesh or make_mesh(device=self.device)
+        pool = self._choose_pool(spp)
+        key = (mesh, pool)
+        if self._sharded_key != key:
+            records, has_tex, fused_shade = self._shade_args
+            self._sharded_frame = make_sharded_frame_loop(
+                mesh, self.intersector, self.width, self.height,
+                self.recursions, self.spread, shade_records=records,
+                has_textures=has_tex, fused_shade=fused_shade,
+                fused_spawn=self.fused, sort_key_mode=self.sort_key_mode,
+                spp_pool=pool, sort_payload=self.sort_payload)
+            self._sharded_key = key
+        px, py, real = pixel_grid(self.width, self.height, pad_to=mesh.size)
+        psum, psq = self._sharded_frame(
+            self.scene_arrays, self.camera.params(self.device), px, py,
+            self.draws.split(mesh.size), spp)
+        f = self.film
+        f.pixel_sum += all_gather_rays(mesh, psum)[:real]
+        f.pixel_sum_sq += all_gather_rays(mesh, psq)[:real]
+        f.num_samples += float(spp)
+        return self.get_hdr()

@@ -4,10 +4,10 @@
 The port's own loader of the same source (the JAX package's
 ``raytracer_tpu/native`` cannot be imported without JAX): it compiles
 the shared library on first use with g++ into ``build/torch_native/``
-and binds the two parsers the COLLADA loader uses and the Morton sort
-of the cluster-grid builder.  Each has the same numpy fallback, so
-scene loading works without a toolchain; this is host work, not the
-device path.
+and binds the two parsers the COLLADA loader uses, the de-indexing
+gather and the Morton sort of the cluster-grid builder.  Each has the
+same numpy fallback, so scene loading works without a toolchain; this
+is host work, not the device path.
 """
 
 from __future__ import annotations
@@ -66,6 +66,11 @@ def _load():
         lib.rtx_parse_ints.argtypes = [
             ctypes.c_char_p, ctypes.c_long,
             ctypes.POINTER(ctypes.c_int64), ctypes.c_long]
+        lib.rtx_deindex.restype = None
+        lib.rtx_deindex.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_float)]
         lib.rtx_morton_order.restype = None
         lib.rtx_morton_order.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_long,
@@ -102,6 +107,21 @@ def parse_ints(text: str) -> np.ndarray:
         if n >= 0:
             return out[:n].copy()
     return np.array([int(x) for x in text.split()], dtype=np.int64)
+
+
+def deindex(verts: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """verts (V, 3) float32 + position indices (3T,) -> (3T, 3) float32."""
+    lib = _load()
+    verts = np.ascontiguousarray(verts, dtype=np.float32)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    if lib is not None:
+        out = np.empty((len(idx), 3), dtype=np.float32)
+        lib.rtx_deindex(
+            verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(verts),
+            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(idx),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        return out
+    return verts[idx]
 
 
 def morton_order(tri_verts: np.ndarray) -> np.ndarray:

@@ -99,6 +99,7 @@ def main(argv):
         return 2
     import chip_smoke as cs
     import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.core.engine import TorchStream
     from raytracer_tpu_torch.core.wavefront import trace_radiance
     from raytracer_tpu_torch.ops import cuda_build, cuda_bvh, cuda_cluster
 
@@ -183,7 +184,7 @@ def main(argv):
 
     def frame():
         return trace_radiance(rt.scene_arrays, o, d,
-                              [rtx.TorchDraws(10, "cuda")], isect_b, 2, 1)
+                              [TorchStream(10, "cuda")], isect_b, 2, 1)
     frame()
     res["BVH trace_radiance frame ms"] = turns(
         "BVH trace_radiance frame 1024x1024 1 spp, ms",

@@ -750,3 +750,128 @@ def test_inverse_rendering_step_on_the_card_matches_the_cpu(card):
         np.testing.assert_allclose(gk[k], gc[k], rtol=1e-3,
                                    atol=1e-5 * np.abs(gc[k]).max(),
                                    err_msg=k)
+
+
+# -- multi-device rendering over NCCL at world size 1 ----------------------
+
+class _SplitNumpyDraws(_NumpyDraws):
+    def split(self, n):
+        return [_SplitNumpyDraws(int(s), self.device)
+                for s in self.rng.integers(0, 2 ** 62, size=n)]
+
+
+@pytest.fixture(scope="module")
+def nccl():
+    """A one-rank NCCL process group on the card for the module's tests,
+    destroyed after them."""
+    import socket
+    from raytracer_tpu_torch.parallel import initialize_distributed
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(
+        backend="nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+        rank=0, timeout=60) is True
+    yield torch.device("cuda")
+    torch.distributed.destroy_process_group()
+
+
+def test_nccl_bring_up_at_world_size_one(nccl):
+    from raytracer_tpu_torch.parallel import initialize_distributed, make_mesh
+    from raytracer_tpu_torch.parallel.mesh import (all_gather_rays,
+                                                   all_reduce_sum)
+    assert initialize_distributed() is True
+    assert torch.distributed.get_backend() == "nccl"
+    mesh = make_mesh()
+    assert (mesh.size, mesh.rank) == (1, 0) and mesh.group is not None
+    assert mesh.device.type == "cuda"
+    x = torch.arange(12.0, device=nccl).view(4, 3)
+    torch.testing.assert_close(all_gather_rays(mesh, x), x)
+    torch.testing.assert_close(all_reduce_sum(mesh, x.clone()), x)
+
+
+def test_render_sharded_on_the_card_matches_the_cpu(nccl):
+    """render_sharded of ico3_tex (textured, tpl 70) at 64x64, spp 2,
+    over the NCCL group on the card and with no group on the CPU, from the
+    same numpy-made per-rank draws: at most 24 film values differ (the
+    whole-render rule of chip_smoke.py), with 6 + 6 fused launches."""
+    import pathlib
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    from raytracer_tpu_torch.parallel import Mesh
+    scene = ColladaLoader.from_file(
+        pathlib.Path(__file__).resolve().parent.parent / "data"
+        / "ico3_tex.dae", width=64, height=64, verbose=False)
+    films = {}
+    for dev in ("cuda", "cpu"):
+        rt = rtx.RayTracer(scene, 64, 64, device=dev,
+                           draws=_SplitNumpyDraws(5, dev))
+        mesh = None if dev == "cuda" else Mesh(1, 0, torch.device("cpu"))
+        cuda_bvh.bvh_spawn.launches = 0
+        films[dev] = rt.render_sharded(2, mesh=mesh)
+        if dev == "cuda":
+            assert cuda_bvh.bvh_spawn.launches == 3
+    a, b = films["cuda"], films["cpu"]
+    assert np.isfinite(a).all() and a.max() > 0
+    assert (~np.isclose(a, b, rtol=2e-4, atol=2e-5)).sum() <= 24
+
+
+def test_sharded_train_step_on_the_card_matches_unsharded(nccl):
+    """The sharded train step over the NCCL group (4boxes 64x64, brute
+    force, 2 bounces, Adam over the albedo from grey): the first step's
+    loss, gradient and albedo equal diff.inverse's unsharded step from
+    the same start and draws (rtol 1e-5: only the loss's reduction order
+    differs), and the loss falls over 3 steps, with no kernel launch."""
+    import dataclasses
+    import pathlib
+    from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
+    from raytracer_tpu_torch.diff.inverse import (extract_params,
+                                                  make_train_step)
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    from raytracer_tpu_torch.parallel import (make_mesh, make_sharded_render,
+                                              make_sharded_train_step,
+                                              pixel_grid)
+    n = 64
+    scene = ColladaLoader.from_file(
+        pathlib.Path(__file__).resolve().parent.parent / "data"
+        / "4boxes.dae", width=n, height=n, verbose=False)
+    sa = scene.to_buffers().to_device(nccl)
+    cam = scene.cameras[0].params(nccl)
+    mesh = make_mesh()
+    px, py, _ = pixel_grid(n, n)
+    brute = BruteForceIntersector()
+    with torch.no_grad():
+        target = make_sharded_render(mesh, brute, n, n, recursions=2)(
+            sa, cam, px, py, [_NumpyDraws(20, nccl)])
+    start = dataclasses.replace(sa, mat_diffuse_rgb=torch.full_like(
+        sa.mat_diffuse_rgb, 0.5))
+    cuda_bvh.bvh_closest.launches = 0
+    results = []
+    for sharded in (True, False):
+        params = extract_params(start, ("mat_diffuse_rgb",))
+        opt = torch.optim.Adam(list(params.values()), lr=5e-2)
+        if sharded:
+            step = make_sharded_train_step(mesh, brute, n, n, opt,
+                                           recursions=2)
+            losses = [float(step(params, start, cam, px, py, target,
+                                 [_NumpyDraws(21, nccl)])[0])]
+        else:
+            step = make_train_step(opt, cam, torch.from_numpy(px).to(nccl),
+                                   torch.from_numpy(py).to(nccl), n, n,
+                                   brute, target, recursions=2)
+            losses = [float(step(params, start, _NumpyDraws(21, nccl))[1])]
+        p = params["mat_diffuse_rgb"]
+        results.append((losses[0], p.grad.cpu().numpy().copy(),
+                        p.detach().cpu().numpy().copy()))
+        if sharded:
+            for _ in range(2):
+                losses.append(float(step(params, start, cam, px, py, target,
+                                         [_NumpyDraws(21, nccl)])[0]))
+            assert losses[2] < losses[1] < losses[0], losses
+    (ls, gs, ps), (lu, gu, pu) = results
+    assert ls == pytest.approx(lu, rel=1e-5) and lu > 0
+    np.testing.assert_allclose(gs, gu, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ps, pu, rtol=1e-5, atol=1e-7)
+    assert cuda_bvh.bvh_closest.launches == 0

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.diff.checkpoint import CheckpointManager
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 
 def test_save_restore_roundtrip(tmp_path):

@@ -24,6 +24,7 @@ from raytracer_tpu.ops.pallas_bvh import (BVHIntersector as JaxBVH,
                                           pallas_bvh_spawn)
 from raytracer_tpu_torch.ops import cuda_bvh, cuda_cluster
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 N_RAYS = 1024          # one interpret-mode grid step of the TPU kernels
 RB = 128

@@ -35,6 +35,7 @@ from raytracer_tpu_torch.models.camera import CameraParams
 from raytracer_tpu_torch.models.types import SceneArrays
 from tests import fixtures
 from tests.test_torch_wavefront import ThreefryStream
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL_REL = 1e-3, 1e-5
 
@@ -157,12 +158,20 @@ def _port_grads(p, W, H, target, recursions=0):
                        jitter=p["jitter"])
 
 
-def test_gradients_match_jax_grad_on_the_wall_triangle(tri_scene):
+@pytest.fixture(scope="module")
+def tri_render(tri_scene):
+    """The JAX render of the wall triangle (recursions 0, fixed jitter),
+    computed once for the tests that derive their targets from it."""
+    return _jax_render(tri_scene[1], 16, 12)
+
+
+def test_gradients_match_jax_grad_on_the_wall_triangle(tri_scene,
+                                                       tri_render):
     """Albedo, vertices, light colour and position, camera origin and
     rotation: the port's autograd against jax.grad of the same loss."""
     p, j = tri_scene
     W, H = 16, 12
-    target = _jax_render(j, W, H) * np.float32(0.8)
+    target = tri_render * np.float32(0.8)
     jg_s, jg_c = _jax_grads(j, W, H, target)
     pg_s, pg_c = _port_grads(p, W, H, target)
     for name in ("mat_diffuse_rgb", "tri_verts", "light_color", "light_pos"):
@@ -194,19 +203,28 @@ def _loss(p, W, H, target, scene=None, cam=None):
                       torch.from_numpy(target), jitter=p["jitter"])
 
 
+@pytest.fixture(scope="module")
+def tri_fd(tri_scene):
+    """The finite-difference checks' target (the port's render x 0.8)
+    and the port's gradients of its loss, computed once."""
+    p, _ = tri_scene
+    target = _port_render(p, 16, 12).detach().numpy() * np.float32(0.8)
+    return target, _port_grads(p, 16, 12, target)
+
+
 @pytest.mark.parametrize("leaf,idx,eps,rtol", [
     ("mat_diffuse_rgb", 0, 1e-3, 0.05),
     ("tri_verts", 0, 1e-3, 0.08),
     ("light_color", 1, 1e-3, 0.05),
     ("origin", 2, 1e-3, 0.08),
 ])
-def test_grad_matches_finite_differences(tri_scene, leaf, idx, eps, rtol):
+def test_grad_matches_finite_differences(tri_scene, tri_fd, leaf, idx, eps,
+                                         rtol):
     """The port of tests/test_diff.py's four central finite-difference
     checks (same entries, steps and tolerances)."""
     p, j = tri_scene
     W, H = 16, 12
-    target = _port_render(p, W, H).detach().numpy() * np.float32(0.8)
-    gs, gc = _port_grads(p, W, H, target)
+    target, (gs, gc) = tri_fd
     on_cam = leaf == "origin"
     analytic = float(getattr(gc if on_cam else gs, leaf).reshape(-1)[idx])
 
@@ -254,7 +272,7 @@ def test_texel_grad_matches_finite_differences(tex_scene):
     assert g.reshape(-1)[idx] == pytest.approx(fd, rel=0.05)
 
 
-def test_inverse_rendering_recovers_albedo(tri_scene):
+def test_inverse_rendering_recovers_albedo(tri_scene, tri_render):
     """tests/test_diff.py:119-139 on the port (120 Adam steps at 5e-2
     from an albedo of 0.5: the albedo within 0.05, the loss down 100x),
     and the first 10 losses against the JAX optimize's from the same
@@ -262,10 +280,8 @@ def test_inverse_rendering_recovers_albedo(tri_scene):
     differently, so the losses agree to rtol 1e-3, not bit for bit."""
     p, j = tri_scene
     W, H = 16, 12
-    target_j = jgrad.render_pixels(j["scene"], j["cam"], j["px"], j["py"],
-                                   j["key"], W, H, JaxBrute(), recursions=0,
-                                   jitter=j["jitter"])
-    target = torch.from_numpy(np.array(target_j))
+    target_j = jnp.asarray(tri_render)
+    target = torch.from_numpy(np.array(tri_render))
     start_p = dataclasses.replace(p["scene"], **params_from_numpy(
         {"mat_diffuse_rgb": np.full((1, 3), 0.5, np.float32)}, device="cpu"))
     recovered, losses = optimize(

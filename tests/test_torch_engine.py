@@ -16,6 +16,7 @@ from raytracer_tpu_torch import RayTracer, create_raytracer_from_file
 from raytracer_tpu_torch.core.tonemap import pack_u32, simple_map
 from raytracer_tpu_torch.models.collada import ColladaLoader
 from tests.test_torch_wavefront import ThreefryDraws
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 16
 
@@ -148,7 +149,9 @@ def test_import_loads_neither_jax_nor_reference_package():
                 "ops.cuda_bvh", "ops.cuda_cluster", "cli", "viewer",
                 "inline_scene", "diff.gradients", "diff.inverse",
                 "diff.checkpoint", "utils.stats", "utils.timing",
-                "utils.png_io", "utils.profiling"):
+                "utils.png_io", "utils.profiling", "parallel",
+                "parallel.mesh", "parallel.render", "parallel.dryrun",
+                "compat", "compat.octree"):
         assert f"raytracer_tpu_torch.{mod}" in names, mod
 
 

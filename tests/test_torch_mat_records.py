@@ -15,6 +15,7 @@ from raytracer_tpu.core.wavefront import trace_radiance_fused as jax_fused
 from raytracer_tpu_torch.core.shade import build_slot_records
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 from tests.test_torch_wavefront import _port, _port_scene, _setup
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 MAT_COLS = [0, 1, 2, 7]       # normal xyz, geometry (= material) id
 

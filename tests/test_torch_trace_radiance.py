@@ -36,6 +36,7 @@ from raytracer_tpu_torch.models.types import SceneArrays
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 from raytracer_tpu_torch.ops.cuda_cluster import ClusterIntersector
 from tests.test_torch_wavefront import ThreefryStream
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 
 def _assert_flip_bound(got, want):
@@ -190,3 +191,29 @@ def test_brute_direct_render_matches_golden(data_dir, name):
     img = rad.numpy().reshape(H, W, 3)
     close = np.isclose(img, golden, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() > 0.995, f"golden mismatch on {(~close).sum()} pixels"
+
+
+def test_direct_lighting_matches_oracle(data_dir):
+    """tests/test_engine.py::test_direct_lighting_matches_oracle on the
+    port: brute force, recursions 0, jitter 0.5 at 32x24 against the
+    independent scalar per-pixel oracle (tests/oracle.py::render_direct);
+    at most 2 % of the pixels may differ beyond 1e-2 of their scale (f32
+    associativity at geometric edges), as there."""
+    from tests import oracle
+    W, H = 32, 24
+    scene = ColladaLoader.from_file(data_dir / "4boxes.dae", width=W,
+                                    height=H, verbose=False)
+    buf = scene.to_buffers()
+    px = torch.from_numpy(np.tile(np.arange(W, dtype=np.int32), H))
+    py = torch.from_numpy(np.repeat(np.arange(H, dtype=np.int32), W))
+    jit = torch.full((W * H, 2), 0.5)
+    o, d = generate_rays(scene.cameras[0].params("cpu"), px, py, jit, W, H)
+    rad = trace_radiance(buf.to_device("cpu"), o, d, [None],
+                         BruteForceIntersector(), recursions=0)
+    img = rad.numpy().reshape(H, W, 3)
+    expect = oracle.render_direct(buf, scene.cameras[0], W, H,
+                                  jitter=(0.5, 0.5))
+    diff = np.abs(img - expect).max(axis=-1)
+    agree = (diff < 1e-2 * (1.0 + np.abs(expect).max(axis=-1))).mean()
+    assert agree > 0.98, f"only {agree:.3f} of pixels agree"
+    assert img.max() > 0.0

@@ -1,7 +1,8 @@
 """The port's utilities and small surfaces against the JAX package's:
 stats and timing, PNG IO, the tonemaps and the film, the sample table,
-the inline scene, the compat v-bug pair of tests/test_misc.py, and the
-live viewer on a local port."""
+the inline scene, the compat v-bug pair of tests/test_misc.py, the
+native de-indexing gather (tests/test_native.py), and the live viewer on
+a local port."""
 
 import json
 import time
@@ -27,6 +28,7 @@ from raytracer_tpu_torch.utils.png_io import (decode_png, encode_png,
                                               u32_to_rgba8, write_png)
 from raytracer_tpu_torch.utils.stats import Stats
 from raytracer_tpu_torch.utils.timing import BenchMark
+from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 
 def test_stats_meter():
@@ -233,3 +235,21 @@ def test_viewer_serves_frames_stats_and_keys():
     frames = viewer.state["frames"]
     assert float(rt.film.num_samples.sum()) <= (frames - 3) * 8 * 24
     assert not viewer._render.is_alive() and not viewer._http.is_alive()
+
+
+def test_native_deindex_matches_reference():
+    """native.deindex (the rtx_deindex binding of csrc/rtx_native.cpp)
+    against verts[idx] and the JAX package's binding of the same source,
+    on tests/test_native.py's case and on a random soup."""
+    from raytracer_tpu import native as jax_native
+    from raytracer_tpu_torch import native
+    verts = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx = np.array([2, 0, 3, 1, 1, 2], dtype=np.int64)
+    np.testing.assert_array_equal(native.deindex(verts, idx), verts[idx])
+    rng = np.random.default_rng(6)
+    verts = rng.normal(size=(500, 3)).astype(np.float32)
+    idx = rng.integers(0, 500, size=3000)
+    got = native.deindex(verts, idx)
+    assert got.dtype == np.float32 and got.shape == (3000, 3)
+    np.testing.assert_array_equal(got, verts[idx])
+    np.testing.assert_array_equal(got, jax_native.deindex(verts, idx))

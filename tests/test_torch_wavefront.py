@@ -24,6 +24,19 @@ from raytracer_tpu_torch.ops import cuda_bvh
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """At most 2 torch CPU threads while a module's tests run (the port's
+    test files import this fixture).  The suite runs several pytest
+    workers at once, and torch's default of a thread per core then
+    oversubscribes the CPU; the port's test shapes are small, so its ops
+    gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 class ThreefryStream:
     """One sample's Gaussian stream, replaying the JAX engine's draws:
     subs = split(kt, recursions); level l draws normal(subs[l], (n, 3))
@@ -40,10 +53,14 @@ class ThreefryStream:
 class ThreefryDraws:
     """The JAX engine's per-sample key chain (engine.py:169-171,
     :269-279, :304-322): key, k = split(key); kj, kt = split(k); jitter
-    = uniform(kj, (n, 2)); Gaussians from kt."""
+    = uniform(kj, (n, 2)); Gaussians from kt.  `split(n)` replays the
+    per-device keys of render_sharded: the frame key from the chain
+    (`_next_key()`, engine.py:169-171), then split(frame_key, n)
+    (`_per_device_keys`, parallel/render.py:33-37), each rank's key
+    chained per sample as above (render.py:104-120)."""
 
-    def __init__(self, seed, recursions):
-        self.key = jax.random.PRNGKey(seed)
+    def __init__(self, seed, recursions, key=None):
+        self.key = jax.random.PRNGKey(seed) if key is None else key
         self.recursions = recursions
 
     def next_sample(self, n):
@@ -52,6 +69,11 @@ class ThreefryDraws:
         jitter = jax.random.uniform(kj, (n, 2), dtype=jnp.float32)
         return (torch.from_numpy(np.array(jitter)),
                 ThreefryStream(kt, self.recursions))
+
+    def split(self, n):
+        self.key, frame_key = jax.random.split(self.key)
+        return [ThreefryDraws(None, self.recursions, key=k)
+                for k in jax.random.split(frame_key, n)]
 
 
 def _setup(data_dir, scene="4boxes.dae", W=32, H=16):
@@ -148,12 +170,19 @@ def test_textured_direct_lighting_matches_reference(data_dir):
     _assert_flip_bound(got, want)
 
 
-def test_pooled_matches_per_sample_bit_for_bit(boxes):
+@pytest.fixture(scope="module")
+def boxes_radiance(boxes):
+    """The port's two-bounce radiance of the boxes' rays (pool 1, dir6
+    keys, "ride"), computed once for the tests that compare against it."""
+    return _port(boxes)
+
+
+def test_pooled_matches_per_sample_bit_for_bit(boxes, boxes_radiance):
     """pool=2: both samples' bounce rays share one sort; per-sample
     radiance must equal the two pool=1 calls exactly."""
     s = boxes
     k2 = jax.random.fold_in(s["kt"], 1)
-    want0 = _port(s)
+    want0 = boxes_radiance
     want1 = _port(s, kt=k2)
     o = torch.from_numpy(np.array(s["o"]))
     d = torch.from_numpy(np.array(s["d"]))
@@ -165,11 +194,12 @@ def test_pooled_matches_per_sample_bit_for_bit(boxes):
     np.testing.assert_array_equal(got[512:], want1)
 
 
-def test_sort_payload_and_key_modes_are_result_invariant(boxes):
+def test_sort_payload_and_key_modes_are_result_invariant(boxes,
+                                                        boxes_radiance):
     """"ride" and "gather" run the same stable sort (bit-equal), and the
     sort key only reorders rays: every key mode gives the same bits."""
     s = boxes
-    want = _port(s)
+    want = boxes_radiance
     np.testing.assert_array_equal(_port(s, sort_payload="gather"), want)
     for mode in ("dir9", "dirmajor", "posmajor"):
         np.testing.assert_array_equal(_port(s, sort_key_mode=mode), want)
