@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # the whole check (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only, small
     python3 chip_smoke.py --profile  # + kernel profiles of two renders,
-                                     # a CLI frame and an inverse step
+                                     # a CLI frame and two inverse steps
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -61,8 +61,7 @@ Phases (any failure raises and exits non-zero):
       brute force on the card: 3 Adam steps over albedo and vertices
       (loss falling, seconds per step, peak memory, no kernel launch);
       the first step's gradients at 64x64 on the card against the CPU
-      (the CPU tests' tolerance); a BVH intersector under autograd
-      raises;
+      (the CPU tests' tolerance); the fused path under autograd raises;
    g. the viewer over create_inline_raytracer (1024x768) on a free
       local port: 3 frames, /frame.png decodes, /stats, /key/w clears
       the film, then shut down;
@@ -80,6 +79,18 @@ Phases (any failure raises and exits non-zero):
       the albedo: loss falling, no kernel launch, the first step equal to
       the unsharded diff.inverse step within rtol 1e-5); the process
       group is destroyed whatever happens;
+   i. gradients over the kernel intersectors: scene_grads of ico3_tex at
+      64x64 (2 bounces) over the BVH and the cluster grid on the card
+      against the CPU (every float leaf, the CPU tests' rule), the
+      radiance under autograd equal bit for bit to the no_grad one, the
+      hit rays whose recomputed t differs from the kernel's; fwd+bwd of
+      thai2 at 1024x1024 (1 spp, 2 bounces) over the BVH without records
+      (tpl 70): seconds a step (median of 3 after a warm-up), Mrays/s,
+      peak memory, 6 bvh_closest launches a step, the forward-only frame
+      and a profile of one step; phase f's inverse step over a BVH built
+      from the start's vertices beside brute force's (the first losses
+      within 1e-4); the dry run (`parallel/dryrun.py --ranks 1`) over
+      NCCL, training over the BVH;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
@@ -1105,15 +1116,19 @@ def phase_cli(rec):
 INVERSE_FIELDS = ("mat_diffuse_rgb", "tri_verts")
 
 
-def inverse_setup(dev, size):
+def inverse_setup(dev, size, accel="brute"):
     """Inverse rendering of ico3_tex at size x size, 1 spp, 2 bounces,
-    brute force on `dev`: the target from the true scene, the start at
+    on `dev`: the target from the true scene by brute force, the start at
     albedo 0.5 with vertices perturbed by a seeded 1e-3, Adam over
-    INVERSE_FIELDS.  Returns step() -> (loss, {field: gradient}), one
+    INVERSE_FIELDS, the steps over brute force or (accel="bvh") a BVH
+    built from the start's vertices, so that the first step's forward is
+    brute force's.  Returns step() -> (loss, {field: gradient}), one
     step with the target's draws."""
+    import types
     import numpy as np
     import torch
-    from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
+    from raytracer_tpu_torch.core.intersectors import (BruteForceIntersector,
+                                                       make_intersector)
     from raytracer_tpu_torch.diff.gradients import render_pixels
     from raytracer_tpu_torch.diff.inverse import (extract_params,
                                                   make_train_step,
@@ -1139,7 +1154,10 @@ def inverse_setup(dev, size):
     opt = torch.optim.Adam([
         {"params": [params["mat_diffuse_rgb"]], "lr": 5e-2},
         {"params": [params["tri_verts"]], "lr": 1e-4}])
-    train = make_train_step(opt, cam, px, py, size, size, brute, target,
+    isect = brute if accel == "brute" else make_intersector(
+        accel, types.SimpleNamespace(
+            tri_verts=start.tri_verts.detach().cpu().numpy()), device=dev)
+    train = make_train_step(opt, cam, px, py, size, size, isect, target,
                             recursions=2)
 
     def step():
@@ -1148,11 +1166,11 @@ def inverse_setup(dev, size):
     return step
 
 
-def inverse_run(dev, size, steps):
-    """`steps` steps of `inverse_setup(dev, size)`: the losses, seconds
-    per step and the first step's gradients (numpy)."""
+def inverse_run(dev, size, steps, accel="brute"):
+    """`steps` steps of `inverse_setup(dev, size, accel)`: the losses,
+    seconds per step and the first step's gradients (numpy)."""
     import torch
-    step = inverse_setup(dev, size)
+    step = inverse_setup(dev, size, accel)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
     losses, secs, grads = [], [], None
     for _ in range(steps):
@@ -1170,11 +1188,10 @@ def inverse_run(dev, size, steps):
 def phase_inverse(rec):
     """Inverse rendering (BASELINE config #5) on the card at 1024x1024,
     3 steps; the first step's gradients at 64x64 on the card against the
-    CPU's; the autograd guard of a BVH intersector."""
+    CPU's; the autograd guard of the fused path."""
     import numpy as np
     import torch
     import raytracer_tpu_torch as rtx
-    from raytracer_tpu_torch.diff.gradients import scene_grads
     dev = torch.device("cuda")
     set_counts(timing=False)
     torch.cuda.reset_peak_memory_stats()
@@ -1203,15 +1220,15 @@ def phase_inverse(rec):
     out.update(loss64=(lk, lc), grad_err_over_tol=errs)
     rt = rtx.create_raytracer_from_file(
         os.path.join(REPO, "data", "ico3_tex.dae"), width=64, height=64)
-    px = torch.arange(64, device=dev).repeat(64)
+    assert rt.fused
+    rt.scene_arrays.mat_diffuse_rgb.requires_grad_(True)
     try:
-        scene_grads(rt.scene_arrays, rt.camera.params(dev), px, px,
-                    NumpyDraws(1, dev), 64, 64, rt.intersector,
-                    torch.zeros((64, 3), device=dev))
-        raise AssertionError("a BVH intersector ran under autograd")
+        rt.render(1)
+        raise AssertionError("the fused path ran under autograd")
     except ValueError as e:
-        assert "brute" in str(e), e
-        log(f"BVH intersector under autograd raises: {e}")
+        log(f"the fused path under autograd raises: {e}")
+    finally:
+        rt.scene_arrays.mat_diffuse_rgb.requires_grad_(False)
     rec["inverse"] = out
     return out
 
@@ -1438,15 +1455,232 @@ def phase_sharded(rt, rec, main_per_launch):
     return out
 
 
-def phase_profile(what, fn, rec):
+def grad_err(got, want):
+    """The largest |got - want| / (1e-3 |want| + 1e-5 max |want|) of one
+    gradient leaf (the CPU tests' rule: at most 1 passes); 0 where both
+    leaves are zero."""
+    import numpy as np
+    diff = np.abs(got - want)
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    if scale == 0.0:
+        return 0.0 if not diff.any() else float("inf")
+    return float((diff / (1e-3 * np.abs(want) + 1e-5 * scale)).max())
+
+
+def leaf_grads(grads):
+    """{leaf: numpy gradient} of every float leaf of scene_grads'
+    (scene, camera) result."""
+    import dataclasses
+    return {f"{type(o).__name__}.{f.name}":
+            getattr(o, f.name).detach().cpu().numpy()
+            for o in grads for f in dataclasses.fields(o)
+            if getattr(o, f.name) is not None}
+
+
+def grad_scene(name, size, dev, accel):
+    """(scene arrays, camera, px, py, intersector `accel` with tpl 70
+    and no records) of data/<name> at size x size on `dev`."""
+    import torch
+    from raytracer_tpu_torch.core.intersectors import make_intersector
+    from raytracer_tpu_torch.models.collada import ColladaLoader
+    scene = ColladaLoader.from_file(os.path.join(REPO, "data", name),
+                                    width=size, height=size, verbose=False)
+    buf = scene.to_buffers()
+    px = torch.arange(size, device=dev).repeat(size)
+    py = torch.arange(size, device=dev).repeat_interleave(size)
+    isect = make_intersector(accel, buf, device=dev)
+    assert not getattr(isect, "supports_fused_spawn", False)
+    return (buf.to_device(dev), scene.cameras[0].params(dev), px, py,
+            isect)
+
+
+def recompute_mismatch(isect, o, d):
+    """(hit rays whose t, recomputed as winner_grad recomputes it, differs
+    from the kernel's t; hit rays) of one query."""
+    import torch
+    from raytracer_tpu_torch.core.intersect import moller_trumbore
+    with torch.no_grad():
+        res = isect.query(None, o, d)
+        hit = res["hit"]
+        planes = isect.packed.tri[:, res["slot"][hit].long()]
+        tw, _, _ = moller_trumbore(*o[hit].unbind(1), *d[hit].unbind(1),
+                                   *planes.unbind(0))
+        return int((tw != res["t"][hit]).sum()), int(hit.sum())
+
+
+def primary_rays(sa, cam, px, py, size, seed):
+    """The primary rays of one sample of NumpyDraws(seed)."""
+    from raytracer_tpu_torch.models.camera import generate_rays
+    jitter, _ = NumpyDraws(seed, px.device).next_sample(px.shape[0])
+    return generate_rays(cam, px, py, jitter, size, size)
+
+
+def phase_grads(rec, brute_losses):
+    """i. Gradients over the kernel intersectors.
+    (a) ico3_tex 64x64, 2 bounces: scene_grads over the BVH and the
+        cluster grid on the card against the CPU's plain versions (the
+        CPU tests' rule on every float leaf), the radiance under autograd
+        equal bit for bit to the no_grad radiance, and the hit rays whose
+        recomputed t differs from the kernel's;
+    (b) fwd+bwd of thai2 1024x1024, 1 spp, 2 bounces over the BVH (tpl
+        70, no records): seconds a step (median of 3 after a warm-up),
+        primary Mrays/s, peak memory, bvh_closest launches (6 a step),
+        the forward-only frame, and a profile of one step;
+    (c) the inverse step of phase f over a BVH beside brute force's
+        (`brute_losses`, phase f's);
+    (d) the dry run at one rank over NCCL, training over the BVH."""
+    import statistics
+    import numpy as np
+    import torch
+    import raytracer_tpu_torch as rtx
+    from raytracer_tpu_torch.diff.gradients import (_with_grad,
+                                                    render_pixels,
+                                                    scene_grads)
+    out = {}
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    only = {"bvh_spawn": 0, "bvh_shadow_shade": 0, "bvh_closest": 0,
+            "cluster_closest": 0}
+
+    # (a) card against CPU at 64x64
+    target = None
+    for accel in ("bvh", "cluster"):
+        kernel = "bvh_closest" if accel == "bvh" else "cluster_closest"
+        grads = {}
+        for side, dev in (("cpu", cpu), ("card", cuda)):
+            sa, cam, px, py, isect = grad_scene("ico3_tex.dae", 64, dev,
+                                                accel)
+            with torch.no_grad():
+                rad = render_pixels(sa, cam, px, py, NumpyDraws(31, dev),
+                                    64, 64, isect, recursions=2)
+            if target is None:
+                target = rad * 0.8
+            if side == "card":
+                rad_g = render_pixels(_with_grad(sa), _with_grad(cam), px,
+                                      py, NumpyDraws(31, dev), 64, 64, isect,
+                                      recursions=2)
+                bitwise = torch.equal(rad_g.detach().view(torch.int32),
+                                      rad.view(torch.int32))
+                differ, hits = recompute_mismatch(
+                    isect, *primary_rays(sa, cam, px, py, 64, 31))
+                set_counts(timing=False)
+            grads[side] = leaf_grads(scene_grads(
+                sa, cam, px, py, NumpyDraws(31, dev), 64, 64, isect,
+                target.to(dev), recursions=2))
+        counts, _ = read_counts()
+        errs = {k: grad_err(grads["card"][k], grads["cpu"][k])
+                for k in grads["cpu"]}
+        log(f"i(a) gradients over {accel} (ico3_tex 64x64, 2 bounces), "
+            f"card vs CPU: error / tolerance (rtol 1e-3, atol 1e-5 of the "
+            f"largest) {errs}; radiance under autograd equal to no_grad bit "
+            f"for bit: {bitwise}; primary hit rays whose recomputed t "
+            f"differs from the kernel's: {differ} of {hits}; launches in "
+            f"the card's step {counts}")
+        assert bitwise, f"{accel}: the forward under autograd differs"
+        assert max(errs.values()) <= 1.0, errs
+        assert all(np.isfinite(g).all() for g in grads["card"].values())
+        assert counts == {**only, kernel: 6}, counts
+        out[f"grad64_{accel}"] = dict(err_over_tol=errs, bitwise=bitwise,
+                                      t_differ=differ, hits=hits,
+                                      launches=counts)
+
+    # (b) fwd+bwd of thai2 at 1024x1024 over the BVH
+    n = 1024
+    sa, cam, px, py, bvh = grad_scene("thai2.dae", n, cuda, "bvh")
+
+    def forward():
+        with torch.no_grad():
+            return render_pixels(sa, cam, px, py, rtx.TorchDraws(41, cuda),
+                                 n, n, bvh, recursions=2)
+    forward()                                               # warm-up
+    fwd = []
+    for _ in range(3):
+        rad, ms = timed(forward)
+        fwd.append(ms / 1e3)
+    assert bool(rad.isfinite().all()) and float(rad.max()) > 0
+    target = rad * 0.8
+    differ, hits = recompute_mismatch(bvh, *primary_rays(sa, cam, px, py, n,
+                                                         41))
+
+    def step():
+        return scene_grads(sa, cam, px, py, rtx.TorchDraws(41, cuda), n, n,
+                           bvh, target, recursions=2)
+    step()                                                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        set_counts(timing=False)
+        (gs, gc), ms = timed(step)
+        counts, _ = read_counts()
+        assert counts == {**only, "bvh_closest": 6}, counts
+        secs.append(ms / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    grads = leaf_grads((gs, gc))
+    assert all(np.isfinite(g).all() for g in grads.values())
+    assert np.abs(grads["SceneArrays.mat_diffuse_rgb"]).max() > 0
+    med = statistics.median(secs)
+    log(f"i(b) fwd+bwd thai2 1024x1024, 1 spp, 2 bounces, BVH tpl 70: "
+        f"seconds a step {secs} (median {med:.4f}), "
+        f"{n * n / med / 1e6:.4f} fwd+bwd primary Mrays/s, peak {peak} B "
+        f"allocated, bvh_closest launches a step {counts['bvh_closest']}; "
+        f"forward only (no_grad) {fwd} s; primary hit rays whose "
+        f"recomputed t differs from the kernel's: {differ} of {hits}")
+    out["fwd_bwd"] = dict(step_seconds=secs, median_s=med,
+                          mrays=n * n / med / 1e6, peak_bytes=peak,
+                          launches=counts, forward_seconds=fwd,
+                          t_differ=differ, hits=hits)
+    phase_profile("fwd+bwd step (thai2 1024x1024, BVH)", step, rec,
+                  by_shape="_index_put_impl_")
+    del sa, cam, px, py, bvh, target, rad, gs, gc, grads
+
+    # (c) the inverse step over a BVH beside brute force's
+    set_counts(timing=False)
+    torch.cuda.reset_peak_memory_stats()
+    losses, isecs, _ = inverse_run(cuda, 1024, 3, accel="bvh")
+    peak = torch.cuda.max_memory_allocated()
+    counts, _ = read_counts()
+    log(f"i(c) inverse rendering ico3_tex 1024x1024 over the BVH: losses "
+        f"{losses} (brute force, phase f: {brute_losses}), seconds per "
+        f"step {isecs}, peak {peak} B allocated; launches in 3 steps "
+        f"{counts}")
+    assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
+    assert abs(losses[0] - brute_losses[0]) <= 1e-4 * brute_losses[0], \
+        (losses[0], brute_losses[0])
+    assert counts == {**only, "bvh_closest": 18}, counts
+    out["inverse_bvh"] = dict(losses=losses, brute_losses=brute_losses,
+                              step_seconds=isecs, peak_bytes=peak,
+                              launches=counts)
+
+    # (d) the dry run, one rank over NCCL
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun",
+         "--ranks", "1", "--timeout", "120"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180)
+    lines = [ln for ln in run.stdout.splitlines() if "dryrun" in ln]
+    log(f"i(d) dry run --ranks 1 over NCCL ({time.perf_counter() - t0:.1f} "
+        f"s, exit {run.returncode}): " + " | ".join(lines))
+    assert run.returncode == 0 and "dryrun: 1 of 1 ranks OK" in run.stdout, \
+        run.stdout + run.stderr[-4000:]
+    out["dryrun"] = lines
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase i: {out['phase_s']:.1f} s")
+    rec["grads"] = out
+    return out
+
+
+def phase_profile(what, fn, rec, by_shape=None):
     """torch.profiler over one call of `fn` (a render, a progressive
     frame, a train step): device time by kernel and the device's busy
-    share of the wall time."""
+    share of the wall time; with `by_shape`, also the device time of
+    each host op whose name holds that string, by its input shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_shape is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1463,6 +1697,15 @@ def phase_profile(what, fn, rec):
         log(f"  {ms:9.3f} ms  {n:4d}x  {name[:100]}")
     rec[f"profile_{what}"] = dict(wall_ms=wall_ms, busy_ms=busy,
                                   kernels=kernels[:40])
+    if by_shape is not None:
+        ops = [(e.key, str(e.input_shapes), e.device_time_total / 1e3,
+                e.count)
+               for e in prof.key_averages(group_by_input_shape=True)
+               if by_shape in e.key and e.device_time_total > 0]
+        ops.sort(key=lambda o: -o[2])
+        for name, shapes, ms, n in ops[:12]:
+            log(f"  {ms:9.3f} ms  {n:4d}x  {name} {shapes[:120]}")
+        rec[f"profile_{what}"]["by_shape"] = ops[:40]
 
 
 def main(argv):
@@ -1472,8 +1715,8 @@ def main(argv):
                     help="build and compare the kernels at a small size only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile by kernel a fused render(8), a "
-                         "cluster render(2), a CLI frame and an inverse "
-                         "rendering step")
+                         "cluster render(2), a CLI frame and inverse "
+                         "rendering steps over brute force and the BVH")
     ap.add_argument("--json", metavar="PATH",
                     help="write everything measured to PATH")
     args = ap.parse_args(argv)
@@ -1523,6 +1766,7 @@ def main(argv):
     phase_inverse(rec)
     phase_viewer(rec)
     sharded = phase_sharded(rt, rec, per_launch)
+    grads = phase_grads(rec, rec["inverse"]["losses"])
     if args.profile:
         phase_profile("fused render(8)", lambda: rt.render(8), rec)
         phase_profile("cluster render(2)", lambda: rt_cluster.render(2), rec)
@@ -1535,6 +1779,9 @@ def main(argv):
         step()                                            # warm-up
         phase_profile("inverse step (ico3_tex 1024x1024, brute force)",
                       step, rec)
+        step = inverse_setup(torch.device("cuda"), 1024, accel="bvh")
+        step()                                            # warm-up
+        phase_profile("inverse step (ico3_tex 1024x1024, BVH)", step, rec)
 
     common = dict(route="cuda", library_ms=None)
     kernels = []
@@ -1594,6 +1841,13 @@ def main(argv):
                 lv["batch"]: lv["tests_run"] / max(lv["tests"], 1)
                 for lv in c["levels"]},
             "main_path_ms": by_level(times, 6)})
+    kernels[2].update(
+        launches_fwd_bwd_step=grads["fwd_bwd"]["launches"]["bvh_closest"],
+        launches_inverse_bvh_3_steps=grads["inverse_bvh"]["launches"][
+            "bvh_closest"],
+        launches_grad64_step=grads["grad64_bvh"]["launches"]["bvh_closest"])
+    kernels[3].update(launches_grad64_step=grads["grad64_cluster"][
+        "launches"]["cluster_closest"])
     line = json.dumps({"kernels": kernels})
     log(line)
     rec["kernels"] = kernels

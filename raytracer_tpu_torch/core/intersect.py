@@ -127,6 +127,48 @@ def closest_hit(origins, dirs, tri_verts, chunk: int = 512,
     return dict(t=t, u=u, v=v, tri=tri_idx.to(torch.int32), hit=hit)
 
 
+class _Carry(torch.autograd.Function):
+    """`value` forward (bit for bit); the gradient goes to `carrier`."""
+
+    @staticmethod
+    def forward(ctx, value, carrier):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def winner_grad(origins, dirs, tri, res):
+    """Gradients to the rays through a kernel intersector's closest hit.
+
+    `res` is the hit dict of a selection made without autograd (t, u, v,
+    hit, and slot: each hit ray's winning column of `tri`, 0 on a miss);
+    `tri` (9, NS) is the intersector's own plane copy of its triangles
+    [v0, e1, e2] x [x, y, z].  When grad mode is on and the rays require
+    grad, t, u and v of every hit ray are computed again by
+    `moller_trumbore` on its winning slot's planes; the values stay the
+    selection's bit for bit and the gradient is the recompute's.  As on
+    the JAX package's XLA path (`xla_cluster_closest`, the winning lane
+    of a scan over the intersector's copy), the gradient reaches the
+    rays only, never the scene's vertices.  Missed and dead rays are
+    recomputed as a safe ray (origin 0, direction (1, 1, 1), slot 0), so
+    that their gradient is a finite one that the `where` stops, not
+    0 * inf."""
+    if not (torch.is_grad_enabled()
+            and (origins.requires_grad or dirs.requires_grad)):
+        return res
+    hit = res["hit"]
+    o = torch.where(hit[:, None], origins, torch.zeros_like(origins))
+    d = torch.where(hit[:, None], dirs, torch.ones_like(dirs))
+    tw, uw, vw = moller_trumbore(*o.unbind(1), *d.unbind(1),
+                                 *tri[:, res["slot"].long()].unbind(0))
+    out = dict(res)
+    for k, w in (("t", tw), ("u", uw), ("v", vw)):
+        out[k] = _Carry.apply(res[k], w)
+    return out
+
+
 def any_hit_window(origins, dirs, tri_verts, t_min=0.01, t_max=1.0,
                    chunk: int = 512):
     """Occlusion query with the reference's shadow semantics

@@ -126,7 +126,16 @@ def trace_radiance(scene, origins, dirs, streams, isect,
     kernel (query(emit_shade=True)), no gather at all.
     Rays that miss everything return black (mod.rs:99-110).  The bounce
     sort runs when `sort_rays` is set and the intersector has world
-    bounds (brute force has none)."""
+    bounds (brute force has none).
+
+    Differentiable over every intersector when neither record path is
+    on: shading reads the live scene arrays (`prepare_shade`), as the
+    JAX training paths leave shade_records and fused_shade off
+    (wavefront.py:170-174 there).  Both record paths raise under
+    autograd (`cuda_build.refuse_autograd`)."""
+    if shade_records is not None:
+        refuse_autograd("trace_radiance(shade_records=...)", origins, dirs,
+                        scene=scene)
     if len(streams) != 1:
         raise ValueError("trace_radiance takes one draw stream; pooled "
                          "samples run on the fused path")
@@ -236,8 +245,9 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
     reference's own two forms compute bit for bit.
 
     The fused kernels have no backward, so this path raises under
-    autograd (`cuda_build.refuse_autograd`); `trace_radiance` over the
-    brute-force intersector is the differentiable one.
+    autograd (`cuda_build.refuse_autograd`), as `pallas_call` has no VJP
+    in the JAX package; `trace_radiance` without records is the
+    differentiable one, over the BVH, the cluster grid or brute force.
     """
     if sort_payload not in SORT_PAYLOADS:
         raise ValueError(f"unknown sort_payload {sort_payload!r}")

@@ -2,8 +2,8 @@
 port of ``raytracer_tpu/diff/gradients.py``).
 
 New capability beyond the reference (which is forward-only).  The
-composable wavefront over the brute-force intersector is differentiable
-as written:
+composable wavefront is differentiable as written, over any
+intersector:
 
 - Continuous paths: radiance is analytic in vertex positions (through
   Moller-Trumbore t/u/v and geometric normals), material albedo, light
@@ -15,8 +15,13 @@ as written:
   and texel snapping are piecewise constant, so visibility
   discontinuities carry no gradient by design.
 
-The kernel intersectors (BVH, cluster grid) have no backward and raise
-under autograd; pass a `BruteForceIntersector`.
+Over the brute-force intersector t, u and v are recomputed from the
+live `tri_verts`.  Over the BVH and the cluster grid the kernel (its
+plain version on the CPU) selects and t, u and v are recomputed from the
+intersector's own copy of the triangles (`core.intersect.winner_grad`),
+as the JAX package's XLA path computes them: the vertex gradient then
+arrives through the normals and the shading, not through t.
+`scene_grads`, `make_train_step` and `optimize` take any of the three.
 
 Random numbers come from a draw source, the port's convention
 (core/engine.py): `draws.next_sample(n)` gives one sample's (n, 2) pixel

@@ -13,7 +13,7 @@ on its own, as in the plain PyTorch versions beside every kernel.
 
 Also the wrappers' shared checks: operands on one CUDA device and
 contiguous, launch errors raised, optional CUDA-event timing, and the
-intersectors' refusal of autograd.
+refusal of autograd by the entries that have no gradient.
 """
 
 from __future__ import annotations
@@ -166,11 +166,14 @@ def check_cuda(name, *tensors):
 
 def refuse_autograd(name, *tensors, scene=None):
     """Raise a ValueError when grad mode is on and an operand, or a tensor
-    of `scene` (a SceneArrays), requires grad.  A kernel intersector runs
-    CUDA kernels (or, on the CPU, their plain versions over its own copy
-    of the triangles) with no backward, so gradients through it would be
-    silently zero; the brute-force intersector is the differentiable
-    path."""
+    of `scene` (a SceneArrays), requires grad.  The entries that call it
+    have no gradient at all: the fused BVH kernels (`spawn`,
+    `shadow_shade`, so `trace_radiance_fused`) and the winning-record
+    paths (`query(emit_shade=True)`, `trace_radiance`'s shade_records),
+    whose records are forward-only constants, as in the JAX package.
+    Gradients through them would be silently zero.  The closest-hit
+    queries of the kernel intersectors are differentiable to the rays
+    (`core.intersect.winner_grad`)."""
     if not torch.is_grad_enabled():
         return
     if dataclasses.is_dataclass(scene):
@@ -178,9 +181,10 @@ def refuse_autograd(name, *tensors, scene=None):
                          for f in dataclasses.fields(scene))
     if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise ValueError(
-            f"{name} has no backward (its kernels and its copy of the "
-            "triangles carry no gradient); render with accel=\"brute\", the "
-            "differentiable path, or run under torch.no_grad()")
+            f"{name} has no backward (its kernels and records carry no "
+            "gradient); differentiate through trace_radiance without shade "
+            "records, over accel=\"bvh\", \"cluster\" or \"brute\", or run "
+            "under torch.no_grad()")
 
 
 def event(wrapper):

@@ -48,7 +48,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.intersect import BIG_T, moller_trumbore
+from raytracer_tpu_torch.core.intersect import (BIG_T, moller_trumbore,
+                                                winner_grad)
 from raytracer_tpu_torch.core.shade import _normalize, pow32
 from raytracer_tpu_torch.models.types import resolve_device
 from raytracer_tpu_torch.ops import cuda_build
@@ -570,8 +571,16 @@ def hit_dict(res, perm):
 class BVHIntersector:
     """The packed two-level BVH on one device (pallas_bvh.BVHIntersector):
     the fused kernels (`spawn`, `shadow_shade`) and the generic closest
-    hit (`query`, `closest`, `shadow`) of the composable wavefront.  It
-    has no backward: every entry raises under autograd (see
+    hit (`query`, `closest`, `shadow`) of the composable wavefront.
+
+    `query` is differentiable to the rays as the JAX package's XLA path
+    is: the kernel (the plain version on the CPU) selects without
+    autograd, and t, u and v of each winner are recomputed from this
+    intersector's own copy of the triangles (`winner_grad`), so they
+    carry no gradient to the scene's vertices.  `shadow` gives a bool
+    and runs without autograd.  The fused entries (`spawn`,
+    `shadow_shade`) and `query(emit_shade=True)`, whose records are
+    forward-only constants, raise under autograd (see
     `cuda_build.refuse_autograd`)."""
 
     name = "bvh"
@@ -725,11 +734,15 @@ class BVHIntersector:
         (R, n_rec), extracted in the kernel."""
         assert not emit_shade or self.supports_fused_shade, \
             "emit_shade requires full-format set_shade_records()"
-        refuse_autograd("BVHIntersector.query", origins, dirs, scene=scene)
-        res = self._closest(rays_from(origins, dirs, alive),
-                            self.shade_planes if emit_shade else None,
-                            t_limit)
-        return hit_dict(res, self.perm)
+        if emit_shade:
+            refuse_autograd("BVHIntersector.query(emit_shade=True)",
+                            origins, dirs, scene=scene)
+        with torch.no_grad():
+            res = self._closest(rays_from(origins, dirs, alive),
+                                self.shade_planes if emit_shade else None,
+                                t_limit)
+        return winner_grad(origins, dirs, self.packed.tri,
+                           hit_dict(res, self.perm))
 
     def closest(self, scene, origins, dirs, alive=None):
         return self.query(scene, origins, dirs, alive=alive)
@@ -739,7 +752,7 @@ class BVHIntersector:
         """Windowed-closest occlusion (mod.rs:224-230): blocked iff the
         closest hit lands strictly inside (t_min, t_max).  Culling past
         t_max cannot change the outcome."""
-        refuse_autograd("BVHIntersector.shadow", origins, dirs, scene=scene)
-        t = self._closest(rays_from(origins, dirs, alive), t_limit=t_max,
-                          shadow=True)["t"]
+        with torch.no_grad():
+            t = self._closest(rays_from(origins, dirs, alive), t_limit=t_max,
+                              shadow=True)["t"]
         return (t < BIG_T) & (t > t_min) & (t < t_max)

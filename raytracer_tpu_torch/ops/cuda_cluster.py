@@ -29,14 +29,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.intersect import BIG_T
+from raytracer_tpu_torch.core.intersect import BIG_T, winner_grad
 from raytracer_tpu_torch.models.types import resolve_device
 from raytracer_tpu_torch.ops import cuda_build
 from raytracer_tpu_torch.ops.cluster import build_cluster_grid
 from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 counted, cuda_stream, event,
-                                                ptr, raise_on,
-                                                refuse_autograd)
+                                                ptr, raise_on)
 from raytracer_tpu_torch.ops.cuda_bvh import (DEFAULT_RAY_BLOCK,
                                               SHADOW_T_MAX, SHADOW_T_MIN,
                                               closest_plain, hit_dict,
@@ -177,7 +176,12 @@ class ClusterIntersector:
     """The flat cluster grid on one device (accel="cluster").  The
     `triangles_per_leaf` knob is the reference's octree leaf size
     (lib.rs:15-27), here the cluster size rounded to a multiple of 128
-    lanes."""
+    lanes.
+
+    `query` is differentiable to the rays as the JAX package's XLA path
+    is (`cuda_bvh.BVHIntersector`): the kernel selects without autograd
+    and t, u and v of each winner are recomputed from this grid's own
+    copy of the triangles (`winner_grad`)."""
 
     name = "cluster"
 
@@ -230,12 +234,14 @@ class ClusterIntersector:
     def query(self, scene, origins, dirs, alive=None, t_limit=None):
         """Generic closest hit of (R, 3) rays with a t limit (shadow
         queries pass the window maximum); dead rays (alive False) miss.
-        Raises under autograd (`cuda_build.refuse_autograd`)."""
-        refuse_autograd("ClusterIntersector.query", origins, dirs,
-                        scene=scene)
-        res = cluster_closest(rays_from(origins, dirs, alive), self.packed,
-                              t_limit=t_limit, ray_block=self.ray_block)
-        return hit_dict(res, self.perm)
+        Under autograd, t, u and v carry the rays' gradient
+        (`winner_grad`)."""
+        with torch.no_grad():
+            res = cluster_closest(rays_from(origins, dirs, alive),
+                                  self.packed, t_limit=t_limit,
+                                  ray_block=self.ray_block)
+        return winner_grad(origins, dirs, self.packed.tri,
+                           hit_dict(res, self.perm))
 
     def closest(self, scene, origins, dirs, alive=None):
         return self.query(scene, origins, dirs, alive=alive)
@@ -244,5 +250,7 @@ class ClusterIntersector:
                t_max=SHADOW_T_MAX):
         """Closest-then-window occlusion (mod.rs:224-230).  Culling
         clusters whose entry exceeds t_max cannot change the outcome."""
-        res = self.query(scene, origins, dirs, alive=alive, t_limit=t_max)
+        with torch.no_grad():
+            res = self.query(scene, origins, dirs, alive=alive,
+                             t_limit=t_max)
         return res["hit"] & (res["t"] > t_min) & (res["t"] < t_max)

@@ -5,9 +5,8 @@ On every rank of an n-rank mesh, at 16x8 pixels of 4boxes with two
 bounce levels: the sharded forward render over the BVH (the composable
 wavefront over `bvh_closest`) and over brute force agree on the same
 rays and draws, and one sharded train step over the albedo gives a
-finite loss and finite parameters.  The port's step runs over brute
-force: its BVH intersector has no backward and refuses autograd (the
-reference trains over the BVH's XLA fallback).
+finite loss and finite parameters.  The step trains over the BVH, as
+the reference does (over its XLA path, `__graft_entry__.py:98-100`).
 
     python -m raytracer_tpu_torch.parallel.dryrun --ranks 2 --device cpu
     python -m raytracer_tpu_torch.parallel.dryrun --ranks 1   # one card
@@ -77,7 +76,7 @@ def dryrun_multichip(n_devices: int, device=None) -> float:
         dev.mat_diffuse_rgb, 0.5))
     params = extract_params(start, ("mat_diffuse_rgb",))
     opt = torch.optim.Adam(list(params.values()), lr=1e-2)
-    step = make_sharded_train_step(mesh, brute, W, H, opt, recursions=2)
+    step = make_sharded_train_step(mesh, isect, W, H, opt, recursions=2)
     loss, params = step(params, start, cam, px, py, target, draws())
     loss = float(loss)
     assert np.isfinite(loss), f"non-finite loss {loss}"

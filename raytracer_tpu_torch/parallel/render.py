@@ -14,8 +14,9 @@ first (no grad), differentiates the local loss `local_sum /
 global_count`, all-reduces every replicated parameter's gradient and
 then steps the optimizer.  The sum of the local losses is the
 reference's psum'd `total / count` (render.py:181-183) and the summed
-gradients its transposed all-reduce.  The kernel intersectors refuse
-autograd, so the step runs over a `BruteForceIntersector`.
+gradients its transposed all-reduce.  The step runs over any
+intersector of the composable wavefront; the reference's dry run trains
+over the BVH.
 """
 
 from __future__ import annotations

@@ -668,23 +668,49 @@ def test_fused_kernels_mat_records(card, case, textured):
 
 
 @pytest.mark.parametrize("kind", ["bvh", "cluster"])
-def test_kernel_intersectors_refuse_autograd_on_the_card(card, kind):
-    """A CUDA kernel has no backward: queries with rays that require
-    grad raise a ValueError naming accel="brute" and launch nothing;
-    under no_grad the same query runs."""
-    tris, o, d = _random(n_rays=256)
-    isect = _isect(card, kind, tris)
-    wrapper = (cuda_bvh.bvh_closest if kind == "bvh"
-               else cuda_cluster.cluster_closest)
-    before = wrapper.launches
-    og = o.to(card).requires_grad_(True)
-    for call in (isect.query, isect.shadow):
-        with pytest.raises(ValueError, match="brute"):
-            call(None, og, d.to(card))
-    assert wrapper.launches == before
-    with torch.no_grad():
-        isect.query(None, og, d.to(card))
-    assert wrapper.launches == before + 1
+def test_kernel_intersector_gradients_on_the_card(card, kind):
+    """Under autograd a query launches its kernel once: t, u and v equal
+    the no_grad query's bit for bit, and the rays' gradients (through
+    the winner's recomputed Moller-Trumbore) equal the CPU's, zero and
+    finite on the dead and missed rays.  A BVH query with emit_shade
+    still raises under autograd and launches nothing."""
+    tris, o, d = _random(n_rays=1024)
+    o[::7] = 0.0                        # finite origins; dead by alive
+    alive = torch.ones(o.shape[0], dtype=torch.bool)
+    alive[::7] = False
+    grads = {}
+    for dev in (card, "cpu"):
+        isect = _isect(dev, kind, tris)
+        wrapper = (cuda_bvh.bvh_closest if kind == "bvh"
+                   else cuda_cluster.cluster_closest)
+        og, dg = (a.to(dev).requires_grad_(True) for a in (o, d))
+        before = wrapper.launches
+        got = isect.query(None, og, dg, alive=alive.to(dev))
+        with torch.no_grad():
+            want = isect.query(None, og, dg, alive=alive.to(dev))
+        if dev == card:
+            assert wrapper.launches == before + 2
+        for k in ("t", "u", "v"):
+            assert torch.equal(got[k].detach().view(torch.int32),
+                               want[k].view(torch.int32)), k
+        hit = got["hit"]
+        assert bool(hit.any()) and not bool(hit[alive.to(dev) == 0].any())
+        (got["t"][hit].sum() + got["u"].sum() + got["v"].sum()).backward()
+        for g in (og.grad, dg.grad):
+            assert bool(torch.isfinite(g).all()) and bool((g[~hit] == 0).all())
+        grads[str(dev)] = (og.grad.cpu(), dg.grad.cpu(), hit.cpu())
+        if kind == "bvh":
+            isect.set_shade_records(torch.ones((isect.packed.num_slots, 6)))
+            before = wrapper.launches
+            with pytest.raises(ValueError, match="emit_shade"):
+                isect.query(None, og, dg, emit_shade=True)
+            if dev == card:
+                assert wrapper.launches == before
+    (go, gd, hk), (co, cd, hc) = grads[str(card)], grads["cpu"]
+    assert torch.equal(hk, hc)
+    for g, c in ((go, co), (gd, cd)):
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(c.abs().max()))
 
 
 class _NumpyDraws:

@@ -2,8 +2,9 @@
 the same scenes, parameters and threefry draws through both, pixel
 radiance and gradients held against each other, the finite-difference
 checks of tests/test_diff.py and tests/test_texture_grad.py on the port,
-inverse rendering, and the refusal of the kernel intersectors under
-autograd.
+inverse rendering, the gradients through the kernel intersectors (the
+BVH and the cluster grid, against the JAX package's XLA path), and the
+refusal of the paths that have no gradient.
 
 Tolerance of the gradient comparison: the two packages write
 Moller-Trumbore and the shading dot products in different operation
@@ -21,15 +22,19 @@ import pytest
 import torch
 
 from raytracer_tpu.core.intersectors import BruteForceIntersector as JaxBrute
+from raytracer_tpu.core.intersectors import (
+    make_intersector as jax_make_intersector)
 from raytracer_tpu.diff import gradients as jgrad
 from raytracer_tpu.diff.inverse import optimize as jax_optimize
 from raytracer_tpu.models.collada import ColladaLoader as JaxLoader
 from raytracer_tpu_torch.core.intersect import closest_hit
 from raytracer_tpu_torch.core.intersectors import (BruteForceIntersector,
                                                    make_intersector)
-from raytracer_tpu_torch.core.wavefront import _unsort_radiance
-from raytracer_tpu_torch.diff.gradients import (pixel_loss, render_pixels,
-                                                scene_grads)
+from raytracer_tpu_torch.core.shade import build_slot_records
+from raytracer_tpu_torch.core.wavefront import (_unsort_radiance,
+                                                trace_radiance)
+from raytracer_tpu_torch.diff.gradients import (_with_grad, pixel_loss,
+                                                render_pixels, scene_grads)
 from raytracer_tpu_torch.diff.inverse import optimize, params_from_numpy
 from raytracer_tpu_torch.models.camera import CameraParams
 from raytracer_tpu_torch.models.types import SceneArrays
@@ -82,15 +87,20 @@ def _both(jscene, W, H, recursions=0):
     return port, jax_in
 
 
-@pytest.fixture(scope="module")
-def tri_scene():
+def _wall():
     """tests/test_diff.py's wall triangle at scene y = -4, lit from
-    behind its normal's side, 16x12 pixels."""
+    behind its normal's side, as a JAX scene."""
     doc = fixtures.make_doc(
         positions=[-2, -1, 4, 2, -1, 4, 0, 2, 4], indices=[0, 1, 2],
         light_matrix=fixtures.translate_matrix(0.5, 1.0, -6.0),
         light_color="5 5 5", diffuse="0.6 0.3 0.2 1")
-    return _both(JaxLoader.from_str(doc, verbose=False), 16, 12)
+    return JaxLoader.from_str(doc, verbose=False)
+
+
+@pytest.fixture(scope="module")
+def tri_scene():
+    """The wall triangle at 16x12 pixels."""
+    return _both(_wall(), 16, 12)
 
 
 @pytest.fixture(scope="module")
@@ -101,11 +111,12 @@ def tex_scene(data_dir):
     return _both(scene, 24, 18)
 
 
-def _port_render(p, W, H, recursions=0, scene=None, cam=None, draws=None):
+def _port_render(p, W, H, recursions=0, scene=None, cam=None, draws=None,
+                 isect=None):
     return render_pixels(scene or p["scene"], cam or p["cam"], p["px"],
                          p["py"], draws or p["draws"](), W, H,
-                         BruteForceIntersector(), recursions=recursions,
-                         jitter=p["jitter"])
+                         isect or BruteForceIntersector(),
+                         recursions=recursions, jitter=p["jitter"])
 
 
 def _jax_render(j, W, H, recursions=0):
@@ -142,18 +153,18 @@ def _assert_grads_close(got, want, what):
                                err_msg=what)
 
 
-def _jax_grads(j, W, H, target, recursions=0):
+def _jax_grads(j, W, H, target, recursions=0, isect=None):
     def loss(s, c):
         return jgrad.pixel_loss(s, c, j["px"], j["py"], j["key"], W, H,
-                                JaxBrute(), jnp.asarray(target),
+                                isect or JaxBrute(), jnp.asarray(target),
                                 recursions=recursions, jitter=j["jitter"])
     return jax.grad(loss, argnums=(0, 1), allow_int=True)(j["scene"],
                                                           j["cam"])
 
 
-def _port_grads(p, W, H, target, recursions=0):
+def _port_grads(p, W, H, target, recursions=0, isect=None):
     return scene_grads(p["scene"], p["cam"], p["px"], p["py"], p["draws"](),
-                       W, H, BruteForceIntersector(),
+                       W, H, isect or BruteForceIntersector(),
                        torch.from_numpy(target), recursions=recursions,
                        jitter=p["jitter"])
 
@@ -302,29 +313,290 @@ def test_inverse_rendering_recovers_albedo(tri_scene, tri_render):
     np.testing.assert_allclose(losses[:10], jlosses, rtol=1e-3)
 
 
-@pytest.mark.parametrize("kind", ["bvh", "cluster"])
-def test_kernel_intersectors_refuse_autograd(tri_scene, data_dir, kind):
-    """A kernel intersector has no backward: under autograd it raises a
-    ValueError naming the brute-force path, whether the scene or the
-    rays require grad; under no_grad it renders."""
-    from raytracer_tpu_torch.models.collada import ColladaLoader
-    p, _ = tri_scene
+KINDS = ["bvh", "cluster"]
+SCENE_LEAVES = ("mat_diffuse_rgb", "tri_verts", "light_color", "light_pos")
+CAMERA_LEAVES = ("origin", "rot")
+
+
+def _isects(buf, kind):
+    """The accel `kind` of both packages over the same scene buffers: the
+    JAX one takes its XLA path on the CPU (no Pallas, no interpret mode),
+    the port's runs the kernels' plain versions."""
+    return (jax_make_intersector(kind, buf),
+            make_intersector(kind, buf, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def boxes(data_dir):
+    """4boxes at 16x12 with one bounce: both packages' inputs and the
+    scene buffers the intersectors are built from."""
+    js = JaxLoader.from_file(data_dir / "4boxes.dae", width=16, height=12,
+                             verbose=False)
+    p, j = _both(js, 16, 12, recursions=1)
+    return p, j, js.to_buffers()
+
+
+@pytest.fixture(scope="module")
+def boxes_grads(boxes):
+    """get(side, kind): the gradients of the zero-target loss on 4boxes
+    of package `side` ("jax" or "port") over intersector `kind`
+    ("brute", "bvh", "cluster"), each computed once."""
+    p, j, buf = boxes
+    target = np.zeros((16 * 12, 3), np.float32)
+    cache = {}
+
+    def get(side, kind):
+        if (side, kind) not in cache:
+            isect = (None if kind == "brute"
+                     else _isects(buf, kind)[side == "port"])
+            fn = _jax_grads if side == "jax" else _port_grads
+            cache[side, kind] = fn(p if side == "port" else j, 16, 12,
+                                   target, 1, isect)
+        return cache[side, kind]
+    return get
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_intersector_gradients_match_jax(boxes_grads, kind):
+    """scene_grads over the port's BVH and cluster grid against jax.grad
+    over the JAX package's (its XLA path) on 4boxes with one bounce:
+    every float leaf the loss reaches, within the file's tolerance."""
+    jg_s, jg_c = boxes_grads("jax", kind)
+    pg_s, pg_c = boxes_grads("port", kind)
+    for name in SCENE_LEAVES:
+        _assert_grads_close(getattr(pg_s, name), getattr(jg_s, name),
+                            f"{kind} {name}")
+    for name in CAMERA_LEAVES:
+        _assert_grads_close(getattr(pg_c, name), getattr(jg_c, name),
+                            f"{kind} {name}")
+    assert pg_s.tri_geom is None
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_vertex_gradients_follow_the_accelerated_path(boxes_grads,
+                                                             kind):
+    """Over an accel, t comes from the intersector's own copy of the
+    triangles, so the vertex gradient differs from brute force's (which
+    reaches the vertices through t as well): in the JAX package (max
+    |delta| about 0.18 of a largest entry of 1.35 on this scene) and in
+    the port alike, while every other leaf agrees with brute force."""
+    def far(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max()) > 0.05 * float(np.abs(b).max())
+    for side in ("jax", "port"):
+        accel, brute = boxes_grads(side, kind)[0], boxes_grads(side,
+                                                               "brute")[0]
+        assert far(accel.tri_verts, brute.tri_verts), side
+        _assert_grads_close(accel.mat_diffuse_rgb, brute.mat_diffuse_rgb,
+                            f"{side} albedo")
+        _assert_grads_close(accel.light_pos, brute.light_pos,
+                            f"{side} light_pos")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_intersector_texel_gradients_match_jax(tex_scene, data_dir,
+                                                      kind):
+    """The textured ico3_tex at 24x18 over each accel: the texel
+    gradients (through the nearest-neighbour fetch at the recomputed u,
+    v) and the other float leaves against jax.grad over the same accel
+    of the JAX package."""
+    p, j = tex_scene
+    W, H = 24, 18
+    buf = JaxLoader.from_file(data_dir / "ico3_tex.dae", width=W, height=H,
+                              verbose=False).to_buffers()
+    jisect, pisect = _isects(buf, kind)
+    target = _jax_render(j, W, H) * np.float32(0.7)
+    jg_s, _ = _jax_grads(j, W, H, target, isect=jisect)
+    pg_s, _ = _port_grads(p, W, H, target, isect=pisect)
+    for name in ("tex_atlas", "mat_diffuse_rgb", "tri_verts", "light_color"):
+        _assert_grads_close(getattr(pg_s, name), getattr(jg_s, name),
+                            f"{kind} {name}")
+    assert (np.abs(pg_s.tex_atlas.numpy()) > 1e-10).any()
+
+
+def _bits(t):
+    return t.detach().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_forward_under_autograd_is_bitwise(boxes, kind):
+    """Under autograd a kernel intersector's values are the selection's
+    bit for bit: a query with rays that require grad against the same
+    query under no_grad, and the radiance of render_pixels with every
+    scene and camera leaf requiring grad against the no_grad render."""
+    p, _, buf = boxes
+    isect = _isects(buf, kind)[1]
+    rng = np.random.default_rng(5)
+    o = torch.from_numpy(rng.uniform(-2, 2, (500, 3)).astype(np.float32))
+    o[:, 1] += 3.0
+    d = torch.from_numpy(rng.normal(size=(500, 3)).astype(np.float32))
+    alive = torch.from_numpy(rng.random(500) > 0.2)
+    with torch.no_grad():
+        want = isect.query(None, o, d, alive=alive)
+    got = isect.query(None, o.clone().requires_grad_(True),
+                      d.clone().requires_grad_(True), alive=alive)
+    assert bool(want["hit"].any()) and not bool(want["hit"].all())
+    for k in ("t", "u", "v"):
+        assert got[k].requires_grad and torch.equal(_bits(got[k]),
+                                                    _bits(want[k])), k
+    for k in ("hit", "slot", "tri"):
+        assert torch.equal(got[k], want[k]), k
+    with torch.no_grad():
+        rad = _port_render(p, 16, 12, recursions=1, isect=isect)
+    rad_g = _port_render(p, 16, 12, recursions=1,
+                         scene=_with_grad(p["scene"]), cam=_with_grad(p["cam"]),
+                         isect=isect)
+    assert rad_g.requires_grad and float(rad.max()) > 0
+    assert torch.equal(_bits(rad_g), _bits(rad))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_ray_gradients_equal_brute_force_and_stay_finite(kind):
+    """The ray gradient through a kernel intersector's closest hit equals
+    brute force's on the same triangles (the same winner, the same
+    Moller-Trumbore), and missed and dead rays get a zero gradient, not
+    NaN, even with a dead ray's origin at infinity."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(11)
+    tris = (rng.uniform(-3, 3, (300, 1, 3))
+            + rng.uniform(-0.6, 0.6, (300, 3, 3))).astype(np.float32)
+    isect = make_intersector(kind, SimpleNamespace(tri_verts=tris),
+                             device="cpu")
+    o = rng.uniform(-5, 5, (700, 3)).astype(np.float32)
+    d = rng.normal(size=(700, 3)).astype(np.float32)
+    alive = rng.random(700) > 0.25
+    o[np.flatnonzero(~alive)[:5]] = np.inf
+    o, d, alive = (torch.from_numpy(a) for a in (o, d, alive))
+    og, dg = (a.clone().requires_grad_(True) for a in (o, d))
+    got = isect.query(None, og, dg, alive=alive)
+    hit = got["hit"]
+    assert bool(hit.any()) and bool((alive & ~hit).any())
+    assert not bool(hit[~alive].any())
+    (got["t"][hit].sum() + 0.5 * got["u"][hit].sum()
+     + 0.25 * got["v"][hit].sum() + got["t"][~hit].sum()
+     + got["u"][~hit].sum()).backward()
+    for g in (og.grad, dg.grad):
+        assert bool(torch.isfinite(g).all()) and bool((g[~hit] == 0).all())
+    # brute force on the live rays (it has no alive mask)
+    bo, bd = (a[alive].clone().requires_grad_(True) for a in (o, d))
+    want = closest_hit(bo, bd, torch.from_numpy(tris))
+    assert torch.equal(want["hit"], hit[alive])
+    assert torch.equal(got["t"][alive].detach(), want["t"])
+    wh = want["hit"]
+    (want["t"][wh].sum() + 0.5 * want["u"][wh].sum()
+     + 0.25 * want["v"][wh].sum()).backward()
+    for g, w in ((og.grad[alive], bo.grad), (dg.grad[alive], bd.grad)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+class _CountingQueries:
+    """An intersector that records (rays, alive, hit) of every closest
+    query it forwards."""
+
+    def __init__(self, isect):
+        self.isect, self.seen = isect, []
+
+    def __getattr__(self, name):
+        return getattr(self.isect, name)
+
+    def query(self, scene, origins, dirs, alive=None, **kw):
+        res = self.isect.query(scene, origins, dirs, alive=alive, **kw)
+        self.seen.append((origins.shape[0], int(alive.sum()),
+                          int(res["hit"].sum())))
+        return res
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_gradients_finite_where_most_rays_miss(kind):
+    """The wall triangle with two bounces: most rays miss (a triangle
+    alone rarely sees itself) and every child of a missed parent is
+    dead, yet every gradient over the kernel intersectors is finite, and
+    every leaf but the vertices equals brute force's.  (The JAX
+    package's XLA accel path renders 21 of these 576 values otherwise
+    than its own brute force, at the wall's zero-thickness box; the
+    port's accels render as brute force does, so brute force is the
+    yardstick here.)"""
     W, H = 16, 12
-    sb = ColladaLoader.from_file(data_dir / "4boxes.dae",
-                                 verbose=False).to_buffers()
-    isect = make_intersector(kind, sb, device="cpu")
-    target = np.zeros((W * H, 3), np.float32)
-    with pytest.raises(ValueError, match="brute"):
-        scene_grads(p["scene"], p["cam"], p["px"], p["py"], p["draws"](), W,
-                    H, isect, torch.from_numpy(target))
+    js = _wall()
+    p, _ = _both(js, W, H, recursions=2)
+    pisect = make_intersector(kind, js.to_buffers(), device="cpu")
+    counting = _CountingQueries(pisect)
+    with torch.no_grad():
+        rad = _port_render(p, W, H, recursions=2, isect=counting)
+    (n0, _, hit0), (n1, alive1, hit1), (n2, alive2, hit2) = counting.seen
+    # 120 of 192 primary rays hit; 7 of their 240 children (a back-face
+    # hit's hemisphere faces the wall) and none of the grandchildren
+    assert 0 < hit0 < n0 and alive1 == 2 * hit0 < n1
+    assert 0 < hit1 < alive1 // 10 and alive2 == hit1 < n2
+    assert 5 * (hit0 + hit1 + hit2) < n0 + n1 + n2
+    target = rad.numpy() * np.float32(0.8)
+    with torch.no_grad():
+        assert torch.equal(rad, _port_render(p, W, H, recursions=2))
+    pg_s, pg_c = _port_grads(p, W, H, target, 2, counting)
+    bg_s, bg_c = _port_grads(p, W, H, target, 2)
+    for obj, bobj, names in ((pg_s, bg_s, SCENE_LEAVES),
+                             (pg_c, bg_c, CAMERA_LEAVES)):
+        for name in names:
+            assert bool(torch.isfinite(getattr(obj, name)).all()), name
+            if name != "tri_verts":
+                _assert_grads_close(getattr(obj, name), getattr(bobj, name),
+                                    f"{kind} {name}")
+    assert float(pg_s.tri_verts.abs().max()) > 0
+
+
+def test_record_paths_refuse_autograd(boxes):
+    """The winning-record paths have no gradient (their records are
+    forward-only constants, as in the JAX package): a BVH query with
+    emit_shade=True and trace_radiance with shade_records raise under
+    autograd and run under no_grad."""
+    p, _, buf = boxes
+    isect = make_intersector("bvh", buf, device="cpu")
+    scene = p["scene"]
+    records = build_slot_records(scene, isect.perm, isect.perm.shape[0])
+    isect.set_shade_records(records[:, :6])
     o = torch.zeros((4, 3), requires_grad=True)
     d = torch.ones((4, 3))
-    with pytest.raises(ValueError, match="brute"):
-        isect.query(None, o, d)
-    with pytest.raises(ValueError, match="brute"):
-        isect.shadow(None, o, d)
+    with pytest.raises(ValueError, match="emit_shade"):
+        isect.query(None, o, d, emit_shade=True)
     with torch.no_grad():
-        assert isect.query(None, o, d)["t"].shape == (4,)
+        assert isect.query(None, o, d, emit_shade=True)["rec"].shape == (4, 6)
+    stream = [p["draws"]().next_sample(4)[1]]
+    with pytest.raises(ValueError, match="shade_records"):
+        trace_radiance(scene, o, d, stream, isect, 1, 1,
+                       shade_records=records)
+    with torch.no_grad():
+        assert trace_radiance(scene, o, d, stream, isect, 1, 1,
+                              shade_records=records).shape == (4, 3)
+    assert trace_radiance(scene, o, d, stream, isect, 1, 1).requires_grad
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_optimize_over_kernel_intersector_matches_jax(tri_scene, tri_render,
+                                                      kind):
+    """10 Adam steps of the albedo of the wall triangle over each accel:
+    the port's optimize against the JAX optimize over its same accel, the
+    losses within rtol 1e-3 (as test_inverse_rendering_recovers_albedo
+    holds them) and falling."""
+    p, j = tri_scene
+    W, H = 16, 12
+    jisect, pisect = _isects(_wall().to_buffers(), kind)
+    start_p = dataclasses.replace(p["scene"], **params_from_numpy(
+        {"mat_diffuse_rgb": np.full((1, 3), 0.5, np.float32)}, device="cpu"))
+    _, losses = optimize(
+        start_p, p["cam"], p["px"], p["py"], W, H, pisect,
+        torch.from_numpy(np.array(tri_render)), fields=("mat_diffuse_rgb",),
+        steps=10, learning_rate=5e-2, jitter=p["jitter"],
+        draws=KeyDraws(j["key"], 0))
+    start_j = dataclasses.replace(
+        j["scene"], mat_diffuse_rgb=jnp.full_like(j["scene"].mat_diffuse_rgb,
+                                                  0.5))
+    _, jlosses = jax_optimize(start_j, j["cam"], j["px"], j["py"], W, H,
+                              jisect, jnp.asarray(tri_render),
+                              fields=("mat_diffuse_rgb",), steps=10,
+                              learning_rate=5e-2, jitter=j["jitter"])
+    assert losses[-1] < losses[0] * 0.5, losses
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-3)
 
 
 def test_fused_wavefront_refuses_autograd(data_dir):

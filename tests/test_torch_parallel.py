@@ -235,3 +235,72 @@ def test_sharded_train_step_matches_reference_and_reduces_loss(scenes):
     np.testing.assert_allclose(params["mat_diffuse_rgb"].detach().numpy(),
                                np.asarray(diff["mat_diffuse_rgb"]), rtol=1e-3,
                                atol=1e-5)
+
+
+def test_sharded_train_step_over_the_bvh_equals_the_unsharded_step(scenes,
+                                                                   data_dir):
+    """The sharded train step over the BVH (the dry run's intersector) at
+    one rank against diff.inverse.make_train_step over the same BVH,
+    from the same start and draws, with two bounces: the loss, the
+    albedo gradient and the updated albedo within rtol 1e-5."""
+    from raytracer_tpu_torch.core.intersectors import make_intersector
+    from raytracer_tpu_torch.diff.inverse import make_train_step
+    buf = ColladaLoader.from_file(data_dir / "4boxes.dae",
+                                  verbose=False).to_buffers()
+    bvh = make_intersector("bvh", buf, device="cpu")
+    mesh = make_mesh(device="cpu")
+    px, py, _ = pixel_grid(W, H)
+    key = jax.random.PRNGKey(2)
+
+    def ranks():
+        return [ThreefryDraws(None, 2, key=key)]
+
+    with torch.no_grad():
+        target = make_sharded_render(mesh, bvh, W, H, recursions=2)(
+            scenes["pdev"], scenes["pcam"], px, py, ranks())
+    start = dataclasses.replace(scenes["pdev"], mat_diffuse_rgb=torch.full_like(
+        scenes["pdev"].mat_diffuse_rgb, 0.5))
+    out = []
+    for sharded in (True, False):
+        params = extract_params(start, ("mat_diffuse_rgb",))
+        opt = torch.optim.Adam(list(params.values()), lr=5e-2)
+        if sharded:
+            loss, params = make_sharded_train_step(mesh, bvh, W, H, opt,
+                                                   recursions=2)(
+                params, start, scenes["pcam"], px, py, target, ranks())
+        else:
+            params, loss = make_train_step(
+                opt, scenes["pcam"], torch.from_numpy(px),
+                torch.from_numpy(py), W, H, bvh, target, recursions=2)(
+                params, start, ranks()[0])
+        p = params["mat_diffuse_rgb"]
+        out.append((float(loss), p.grad.numpy().copy(),
+                    p.detach().numpy().copy()))
+    (loss_s, grad_s, p_s), (loss_u, grad_u, p_u) = out
+    assert np.isfinite(loss_s) and loss_s > 0
+    assert np.abs(grad_u).max() > 0
+    np.testing.assert_allclose(loss_s, loss_u, rtol=1e-5)
+    np.testing.assert_allclose(grad_s, grad_u, rtol=1e-5,
+                               atol=1e-7 * np.abs(grad_u).max())
+    np.testing.assert_allclose(p_s, p_u, rtol=1e-5)
+
+
+def test_dry_run_trains_over_the_bvh_on_two_gloo_ranks():
+    """`python -m raytracer_tpu_torch.parallel.dryrun --ranks 2 --device
+    cpu`: two worker processes over gloo render over the BVH and brute
+    force and take one sharded train step over the BVH."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun",
+         "--ranks", "2", "--device", "cpu", "--timeout", "50"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=60)
+    text = out.stdout + out.stderr
+    assert out.returncode == 0, text
+    assert "dryrun: 2 of 2 ranks OK" in out.stdout, text
+    for rank in (0, 1):
+        assert f"dryrun_multichip(2) rank {rank}: OK" in out.stdout, text
