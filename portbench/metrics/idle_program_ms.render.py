@@ -1,0 +1,12 @@
+"""Device idle time per render, over the traced window, while the host
+is in an `rtx.*` span of the program other than `rtx.readback` (ray
+generation, the levels and their glue, the kernel wrappers, the film):
+the window's idle gaps split instant by instant over the program's
+spans (portbench/program_spans.py)."""
+
+from portbench.program_spans import idle_split
+
+
+def read(run):
+    split = idle_split(run.profile)
+    return None if split is None else split["program"] * 1e3 / run.units

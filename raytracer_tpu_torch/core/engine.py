@@ -34,6 +34,15 @@ gives every sample a stream of its own, so a sample's numbers do not
 depend on how many samples share its wavefront (the reference's key per
 sample, engine.py:240-244, :269-279).  Public return types are numpy, as
 in the reference.
+
+Spans (utils/profiling.py): `rtx.setup.scene` (the scene's buffers and
+their upload), `rtx.setup.records` (the BVH's shading records),
+`rtx.render` > `rtx.wavefront` > `rtx.raygen` (draws and primary rays),
+then the levels of the wavefront (core/wavefront.py), `rtx.film` (the
+fold into the film), `rtx.readback` (each getter's copy to the host,
+counted in `readback_bytes`), `rtx.frame` > `rtx.row_block` (a miss
+counted in `row_block_builds`), and `rtx.render_sharded` >
+`rtx.all_gather`.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from raytracer_tpu_torch.models.types import resolve_device
 from raytracer_tpu_torch.parallel.mesh import all_gather_rays, make_mesh
 from raytracer_tpu_torch.parallel.render import (make_sharded_frame_loop,
                                                  pixel_grid)
+from raytracer_tpu_torch.utils.profiling import count, span
 
 # reference: oct_tree_intersector.rs:12
 DEFAULT_TRIANGLES_PER_LEAF = 70
@@ -150,8 +160,9 @@ class RayTracer:
         self.width = width
         self.height = height
         self.scene = scene
-        self.scene_buffers = scene.to_buffers()
-        self.scene_arrays = self.scene_buffers.to_device(self.device)
+        with span("rtx.setup.scene"):
+            self.scene_buffers = scene.to_buffers()
+            self.scene_arrays = self.scene_buffers.to_device(self.device)
         self.camera = scene.cameras[0]
         self.film = Film(width * height, self.device)
         self.current_row = 0
@@ -193,10 +204,11 @@ class RayTracer:
         if getattr(isect, "perm", None) is None:
             return None, True, False
         has_tex = bool((self.scene_buffers.mat_tex_id >= 0).any())
-        records = build_slot_records(self.scene_arrays, isect.perm,
-                                     isect.perm.shape[0])
-        if hasattr(isect, "set_shade_records"):
-            isect.set_shade_records(records[:, :7 if has_tex else 6])
+        with span("rtx.setup.records"):
+            records = build_slot_records(self.scene_arrays, isect.perm,
+                                         isect.perm.shape[0])
+            if hasattr(isect, "set_shade_records"):
+                isect.set_shade_records(records[:, :7 if has_tex else 6])
         fused = bool(getattr(isect, "supports_fused_shade", False))
         return records, has_tex, fused
 
@@ -227,12 +239,14 @@ class RayTracer:
     # bundles instead of scanline strips.
     TILE_W, TILE_H = 16, 8
 
+    @span("rtx.row_block")
     def _row_block(self):
         """Pixel coordinates for the next `rows_per_frame` rows,
         tile-swizzled.  Cached per cursor position."""
         cached = self._row_block_cache.get(self.current_row)
         if cached is not None:
             return cached
+        count("row_block_builds")
         rows = (self.current_row + np.arange(self.rows_per_frame)) % self.height
         px = np.tile(np.arange(self.width, dtype=np.int32), self.rows_per_frame)
         py_actual = np.repeat(rows.astype(np.int32), self.width)
@@ -252,22 +266,26 @@ class RayTracer:
 
     # -- reference API ----------------------------------------------------
 
+    @span("rtx.frame")
     def trace_frame_additive(self) -> int:
         """One progressive frame: rows_per_frame rows, 1 spp, additive
         (mod.rs:80-117).  Returns num primary rays (= rows * width)."""
         px, py, idx = self._row_block()
-        jitter, stream = self.draws.next_sample(px.shape[0])
-        o, d = generate_rays(self.camera.params(self.device), px, py,
-                             jitter.to(self.device), self.width, self.height)
+        with span("rtx.raygen"):
+            jitter, stream = self.draws.next_sample(px.shape[0])
+            o, d = generate_rays(self.camera.params(self.device), px, py,
+                                 jitter.to(self.device), self.width,
+                                 self.height)
         radiance = self._radiance(o, d, [stream], 1)
-        self.film.add_samples(idx, radiance)
+        with span("rtx.film"):
+            self.film.add_samples(idx, radiance)
         self.current_row = (self.current_row + self.rows_per_frame) % self.height
         return self.rows_per_frame * self.width
 
     def get_tonemapped_pixels(self) -> np.ndarray:
         """Film mean -> Reinhard -> 0xAARRGGBB u32 (mod.rs:120-129)."""
         hdr = self.film.get_pixels()
-        return pack_u32(simple_map(hdr)).cpu().numpy().astype(np.uint32)
+        return _readback(pack_u32(simple_map(hdr))).astype(np.uint32)
 
     # -- camera controls (main.rs:123-163: every move clears the film) ----
 
@@ -310,18 +328,22 @@ class RayTracer:
         W, H, TW, TH = self.width, self.height, self.TILE_W, self.TILE_H
         Wp, Hp = -(-W // TW) * TW, -(-H // TH) * TH
         px, py = self._pixels()
-        cam = self.camera.params(self.device)
-        os_, ds_, streams = [], [], []
-        for _ in range(pool):
-            jitter, stream = self.draws.next_sample(px.shape[0])
-            o, d = generate_rays(cam, px, py, jitter.to(self.device), W, H)
-            os_.append(o)
-            ds_.append(d)
-            streams.append(stream)
-        rad = self._radiance(torch.cat(os_), torch.cat(ds_), streams, pool)
-        img = (rad.reshape(pool, Hp // TH, Wp // TW, TH, TW, 3)
-               .permute(0, 1, 3, 2, 4, 5).reshape(pool, Hp, Wp, 3))
-        return img[:, :H, :W].reshape(pool, H * W, 3)
+        with span("rtx.wavefront", rays=pool * px.shape[0]):
+            with span("rtx.raygen"):
+                cam = self.camera.params(self.device)
+                os_, ds_, streams = [], [], []
+                for _ in range(pool):
+                    jitter, stream = self.draws.next_sample(px.shape[0])
+                    o, d = generate_rays(cam, px, py, jitter.to(self.device),
+                                         W, H)
+                    os_.append(o)
+                    ds_.append(d)
+                    streams.append(stream)
+                o, d = torch.cat(os_), torch.cat(ds_)
+            rad = self._radiance(o, d, streams, pool)
+            img = (rad.reshape(pool, Hp // TH, Wp // TW, TH, TW, 3)
+                   .permute(0, 1, 3, 2, 4, 5).reshape(pool, Hp, Wp, 3))
+            return img[:, :H, :W].reshape(pool, H * W, 3)
 
     def _choose_pool(self, spp: int) -> int:
         """Largest divisor of spp within the pool budget (auto: 8 on the
@@ -338,21 +360,24 @@ class RayTracer:
                              "renders one sample per wavefront")
         return pool
 
+    @span("rtx.render")
     def render(self, spp: int = 1) -> np.ndarray:
         """Render the full frame at `spp` samples per pixel into the film;
         returns HDR (H, W, 3) float32 mean radiance."""
         pool = self._choose_pool(spp)
         f = self.film
         for _ in range(spp // pool):
-            # sample by sample, so the film does not depend on the pool
-            for rad in self._render_pool(pool):
-                f.pixel_sum += rad
-                f.pixel_sum_sq += rad * rad
-            f.num_samples += float(pool)
+            rads = self._render_pool(pool)
+            with span("rtx.film"):
+                # sample by sample, so the film does not depend on the pool
+                for rad in rads:
+                    f.pixel_sum += rad
+                    f.pixel_sum_sq += rad * rad
+                f.num_samples += float(pool)
         return self.get_hdr()
 
     def get_hdr(self) -> np.ndarray:
-        return self.film.get_pixels().cpu().numpy().reshape(
+        return _readback(self.film.get_pixels()).reshape(
             self.height, self.width, 3)
 
     def get_tonemapped_image(self) -> np.ndarray:
@@ -361,7 +386,7 @@ class RayTracer:
         ldr = simple_map(self.film.get_pixels())
         ldr = torch.where(torch.isnan(ldr), torch.ones_like(ldr),
                           torch.clamp(ldr, 0.0, 1.0))
-        return (ldr * 255.0).to(torch.uint8).cpu().numpy().reshape(
+        return _readback((ldr * 255.0).to(torch.uint8)).reshape(
             self.height, self.width, 3)
 
     def render_image(self, spp: int = 1) -> np.ndarray:
@@ -371,6 +396,7 @@ class RayTracer:
 
     # -- multi-device rendering (parallel/render.py) ----------------------
 
+    @span("rtx.render_sharded")
     def render_sharded(self, spp: int = 1, mesh=None) -> np.ndarray:
         """Full-frame render with pixels sharded over the ranks of a mesh
         (rays data-parallel, scene replicated; default `make_mesh()`).
@@ -398,7 +424,17 @@ class RayTracer:
             self.scene_arrays, self.camera.params(self.device), px, py,
             self.draws.split(mesh.size), spp)
         f = self.film
-        f.pixel_sum += all_gather_rays(mesh, psum)[:real]
-        f.pixel_sum_sq += all_gather_rays(mesh, psq)[:real]
+        with span("rtx.all_gather"):
+            f.pixel_sum += all_gather_rays(mesh, psum)[:real]
+            f.pixel_sum_sq += all_gather_rays(mesh, psq)[:real]
         f.num_samples += float(spp)
         return self.get_hdr()
+
+
+def _readback(t) -> np.ndarray:
+    """`t` copied to the host as a numpy array, in the span
+    `rtx.readback`; its bytes are counted in `readback_bytes`."""
+    n = t.numel() * t.element_size()
+    with span("rtx.readback", bytes=n):
+        count("readback_bytes", n)
+        return t.cpu().numpy()

@@ -22,6 +22,7 @@ intersector is an object exposing
 from __future__ import annotations
 
 from raytracer_tpu_torch.core.intersect import any_hit_window, closest_hit
+from raytracer_tpu_torch.utils.profiling import span
 
 
 class BruteForceIntersector:
@@ -47,11 +48,13 @@ class BruteForceIntersector:
                               t_max=t_max, chunk=self.chunk)
 
 
+@span("rtx.setup.accel")
 def make_intersector(kind: str, scene_buffers=None,
                      triangles_per_leaf: int = 70, **opts):
     """`opts` are forwarded to the accel constructor (e.g. the BVH's
     `seg`/`group`/`ray_block`/`exact_order`, or `device`).  The BVH
-    comes back with no shading records installed."""
+    comes back with no shading records installed.  The host build, the
+    packing and the upload run in the span `rtx.setup.accel`."""
     if kind == "brute":
         return BruteForceIntersector(**opts)
     if kind == "cluster":

@@ -34,6 +34,10 @@ results do not depend on the sort.  Sorts are stable
 (`torch.sort(stable=True)`); the reference's sort is not, but per-ray
 results do not depend on their neighbours and the radiance is unsorted
 by each ray's original index, so the results are the same.
+
+Spans (utils/profiling.py): `rtx.level` per level, inside it the
+intersector's kernel wrappers, `rtx.unsort` (the unsort and the fold)
+and `rtx.sort` (the child sort and its gathers).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from raytracer_tpu_torch.ops.cuda_bvh import (ALIVE_LIMIT, HIT_OFFSET,
                                               SHADOW_T_MAX, SHADOW_T_MIN,
                                               sort_key)
 from raytracer_tpu_torch.ops.cuda_build import refuse_autograd
+from raytracer_tpu_torch.utils.profiling import span
 
 # Compile-time knobs of the reference render loop (mod.rs:81-82).
 RECURSIONS = 2
@@ -166,56 +171,63 @@ def trace_radiance(scene, origins, dirs, streams, isect,
     do_sort = sort_rays and hasattr(isect, "world_lo")
     pending_g = None   # (n_parents, 3*b) canonical Gaussians, parent order
 
-    hit = closest(cur_o, cur_d, parent_alive)
     for level in range(recursions + 1):
-        ctx = prepare(cur_o, cur_d, hit)
-        shadow_alive = (ctx["shadow_alive"]
-                        & parent_alive.repeat(ctx["num_lights"]))
-        alive = parent_alive & hit["hit"]
-        blocked = _shadow(isect, scene, ctx, shadow_alive)
-        rad = finish_shade(scene, ctx, blocked)
-        rad = torch.where(parent_alive[:, None], rad, torch.zeros_like(rad))
+        with span("rtx.level", level=level, rays=cur_o.shape[0]):
+            hit = closest(cur_o, cur_d, parent_alive)
+            ctx = prepare(cur_o, cur_d, hit)
+            shadow_alive = (ctx["shadow_alive"]
+                            & parent_alive.repeat(ctx["num_lights"]))
+            alive = parent_alive & hit["hit"]
+            blocked = _shadow(isect, scene, ctx, shadow_alive)
+            rad = finish_shade(scene, ctx, blocked)
+            rad = torch.where(parent_alive[:, None], rad,
+                              torch.zeros_like(rad))
 
-        # fold back to pixel order (levels >= 1 are in sorted order)
-        if perm_total is not None:
-            rad = _unsort_radiance(rad, perm_total)
-        radiance = radiance + weight * rad.reshape(R, fan, 3).sum(dim=1)
+            # fold back to pixel order (levels >= 1 are in sorted order)
+            with span("rtx.unsort"):
+                if perm_total is not None:
+                    rad = _unsort_radiance(rad, perm_total)
+                radiance = radiance + weight * rad.reshape(R, fan,
+                                                           3).sum(dim=1)
 
-        if level < recursions:
-            b = spread * (recursions - level)       # mod.rs:150
-            n_child = cur_o.shape[0] * b
-            n_rep = ctx["normal"].repeat_interleave(b, dim=0)
-            # the hit point is sanitized in prepare: missed parents spawn
-            # from their (finite) origin
-            hp_rep = ctx["hit_point"].repeat_interleave(b, dim=0)
-            g = (stream.normal(level, n_child) if pending_g is None
-                 else pending_g.reshape(n_child, 3))
-            child_d = hemisphere_from_gaussian(g, n_rep)
-            child_o = hp_rep + HIT_OFFSET * child_d          # mod.rs:192-193
-            child_alive = alive.repeat_interleave(b)
-            b_next = spread * (recursions - level - 1)
-            # the next level's Gaussians, one row of 3*b_next per child in
-            # canonical child order, drawn before this level's sort
-            g_next = (stream.normal(level + 1, n_child * b_next)
-                      .reshape(n_child, 3 * b_next)
-                      if level + 1 < recursions else None)
-            if do_sort:
-                skey = sort_key(child_o, child_d, child_alive, isect.world_lo,
-                                isect.world_inv_span, mode=sort_key_mode)
-                _, p = torch.sort(skey, stable=True)
-                child_o, child_d = child_o[p], child_d[p]
-                child_alive = child_alive[p]
-                perm_total = (p if perm_total is None
-                              else _child_index(perm_total, b)[p])
-                # the draws ride the sort: sorted child k takes the row
-                # of its canonical index
-                g_next = None if g_next is None else g_next[perm_total]
-            pending_g = g_next
+            if level < recursions:
+                b = spread * (recursions - level)       # mod.rs:150
+                n_child = cur_o.shape[0] * b
+                n_rep = ctx["normal"].repeat_interleave(b, dim=0)
+                # the hit point is sanitized in prepare: missed parents
+                # spawn from their (finite) origin
+                hp_rep = ctx["hit_point"].repeat_interleave(b, dim=0)
+                g = (stream.normal(level, n_child) if pending_g is None
+                     else pending_g.reshape(n_child, 3))
+                child_d = hemisphere_from_gaussian(g, n_rep)
+                child_o = hp_rep + HIT_OFFSET * child_d      # mod.rs:192-193
+                child_alive = alive.repeat_interleave(b)
+                b_next = spread * (recursions - level - 1)
+                # the next level's Gaussians, one row of 3*b_next per
+                # child in canonical child order, drawn before this
+                # level's sort
+                g_next = (stream.normal(level + 1, n_child * b_next)
+                          .reshape(n_child, 3 * b_next)
+                          if level + 1 < recursions else None)
+                if do_sort:
+                    with span("rtx.sort"):
+                        skey = sort_key(child_o, child_d, child_alive,
+                                        isect.world_lo, isect.world_inv_span,
+                                        mode=sort_key_mode)
+                        _, p = torch.sort(skey, stable=True)
+                        child_o, child_d = child_o[p], child_d[p]
+                        child_alive = child_alive[p]
+                        perm_total = (p if perm_total is None
+                                      else _child_index(perm_total, b)[p])
+                        # the draws ride the sort: sorted child k takes
+                        # the row of its canonical index
+                        g_next = (None if g_next is None
+                                  else g_next[perm_total])
+                pending_g = g_next
 
-            hit = closest(child_o, child_d, child_alive)
-            cur_o, cur_d, parent_alive = child_o, child_d, child_alive
-            weight = weight / b                          # mean over children
-            fan = fan * b
+                cur_o, cur_d, parent_alive = child_o, child_d, child_alive
+                weight = weight / b                      # mean over children
+                fan = fan * b
 
     return radiance
 
@@ -271,56 +283,61 @@ def trace_radiance_fused(scene, origins, dirs, streams, isect,
 
     for level in range(recursions + 1):
         n_rays = rays.shape[1]
-        b = spread * (recursions - level) if level < recursions else 0
-        if b and gauss is None:
-            gauss = draw_gauss(level, (n_rays // pool) * b).reshape(
-                n_rays, 3 * b).t().contiguous()
-        elif not b:
-            gauss = torch.empty((0, n_rays), dtype=torch.float32,
-                                device=device)
+        with span("rtx.level", level=level, rays=n_rays):
+            b = spread * (recursions - level) if level < recursions else 0
+            if b and gauss is None:
+                gauss = draw_gauss(level, (n_rays // pool) * b).reshape(
+                    n_rays, 3 * b).t().contiguous()
+            elif not b:
+                gauss = torch.empty((0, n_rays), dtype=torch.float32,
+                                    device=device)
 
-        sres = isect.spawn(rays, gauss, scene.light_pos, children=b,
-                           key_mode=sort_key_mode if kernel_keys else "none")
-        rad = isect.shadow_shade(sres["shadow"], sres["rec"][0:3],
-                                 _level_colors(scene, isect, sres),
-                                 rays[3:6], scene.light_color)
-        if L > 1:
-            rad = rad.view(3, L, n_rays).sum(dim=1)
+            sres = isect.spawn(rays, gauss, scene.light_pos, children=b,
+                               key_mode=(sort_key_mode if kernel_keys
+                                         else "none"))
+            rad = isect.shadow_shade(sres["shadow"], sres["rec"][0:3],
+                                     _level_colors(scene, isect, sres),
+                                     rays[3:6], scene.light_color)
+            if L > 1:
+                rad = rad.view(3, L, n_rays).sum(dim=1)
 
-        # fold back to pixel order and accumulate
-        if perm_total is not None:
-            unsorted = torch.empty_like(rad)
-            unsorted[:, perm_total] = rad
-            rad = unsorted
-        if fan > 1:
-            rad = rad.view(3, R0, fan).sum(dim=2)
-        rad_acc = rad_acc + weight * rad
+            # fold back to pixel order and accumulate
+            with span("rtx.unsort"):
+                if perm_total is not None:
+                    unsorted = torch.empty_like(rad)
+                    unsorted[:, perm_total] = rad
+                    rad = unsorted
+                if fan > 1:
+                    rad = rad.view(3, R0, fan).sum(dim=2)
+                rad_acc = rad_acc + weight * rad
 
-        if b:
-            child = sres["children"]                     # (6, n_rays*b)
-            if kernel_keys:
-                skey = sres["keys"]
-            else:
-                alive = child[0].abs() < ALIVE_LIMIT
-                skey = sort_key(child[0:3].t(), child[3:6].t(), alive,
-                                isect.world_lo, isect.world_inv_span,
-                                mode=sort_key_mode)
-            orig = None if perm_total is None else _child_index(perm_total,
-                                                                b)
+            if b:
+                gmat = None
+                if level + 1 < recursions:
+                    b_next = spread * (recursions - level - 1)
+                    gmat = draw_gauss(level + 1,
+                                      (n_rays // pool) * b * b_next).reshape(
+                                          n_rays * b, 3 * b_next)
 
-            gmat = None
-            if level + 1 < recursions:
-                b_next = spread * (recursions - level - 1)
-                gmat = draw_gauss(level + 1,
-                                  (n_rays // pool) * b * b_next).reshape(
-                                      n_rays * b, 3 * b_next)
-
-            _, p = torch.sort(skey, stable=True)
-            rays = child.index_select(1, p)
-            perm_total = p if orig is None else orig[p]
-            gauss = (None if gmat is None
-                     else gmat.index_select(0, perm_total).t().contiguous())
-            weight = weight / b
-            fan = fan * b
+                with span("rtx.sort"):
+                    child = sres["children"]                 # (6, n_rays*b)
+                    if kernel_keys:
+                        skey = sres["keys"]
+                    else:
+                        alive = child[0].abs() < ALIVE_LIMIT
+                        skey = sort_key(child[0:3].t(), child[3:6].t(),
+                                        alive, isect.world_lo,
+                                        isect.world_inv_span,
+                                        mode=sort_key_mode)
+                    orig = (None if perm_total is None
+                            else _child_index(perm_total, b))
+                    _, p = torch.sort(skey, stable=True)
+                    rays = child.index_select(1, p)
+                    perm_total = p if orig is None else orig[p]
+                    gauss = (None if gmat is None
+                             else gmat.index_select(0, perm_total).t()
+                             .contiguous())
+                weight = weight / b
+                fan = fan * b
 
     return rad_acc.t()

@@ -19,6 +19,7 @@ import torch
 from raytracer_tpu_torch.core.engine import TorchDraws
 from raytracer_tpu_torch.diff.gradients import pixel_loss
 from raytracer_tpu_torch.models.types import resolve_device
+from raytracer_tpu_torch.utils.profiling import span
 
 
 def extract_params(scene, fields):
@@ -52,15 +53,21 @@ def make_train_step(optimizer, cam, px, py, width, height, intersector,
 
     Returns step(params, scene, draws) -> (params, loss): `draws` gives
     the step's sample (see diff.gradients); params are updated in place
-    and the loss is that before the update, as the JAX step returns."""
+    and the loss is that before the update, as the JAX step returns.
+    Each step runs in the span `rtx.train_step`, its parts in
+    `rtx.forward`, `rtx.backward` and `rtx.optimizer`."""
 
+    @span("rtx.train_step")
     def step(params, scene, draws):
-        optimizer.zero_grad(set_to_none=True)
-        loss = pixel_loss(merge_params(scene, params), cam, px, py, draws,
-                          width, height, intersector, target, recursions,
-                          spread, jitter)
-        loss.backward()
-        optimizer.step()
+        with span("rtx.forward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = pixel_loss(merge_params(scene, params), cam, px, py,
+                              draws, width, height, intersector, target,
+                              recursions, spread, jitter)
+        with span("rtx.backward"):
+            loss.backward()
+        with span("rtx.optimizer"):
+            optimizer.step()
         return params, loss.detach()
 
     return step

@@ -45,6 +45,7 @@ from raytracer_tpu_torch import vecmath as vm
 from raytracer_tpu_torch.models.camera import Camera
 from raytracer_tpu_torch.models.texture import load_texture
 from raytracer_tpu_torch.models.types import Geometry, Light, Material, Scene
+from raytracer_tpu_torch.utils.profiling import span
 
 F = np.float32
 
@@ -437,8 +438,11 @@ class ColladaLoader:
     colladaloader.rs:22-46)."""
 
     @staticmethod
+    @span("rtx.setup.parse")
     def from_str(doc: str, data_dir=None, width: int = 1024, height: int = 768,
                  verbose: bool = True) -> Scene:
+        """The scene of a document: the parse and the flattening
+        (textures loaded) run in the span `rtx.setup.parse`."""
         collada = Collada.parse(doc)
         return collada.to_scene_flatten(data_dir, width, height, verbose=verbose)
 

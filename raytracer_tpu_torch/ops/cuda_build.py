@@ -29,6 +29,8 @@ import threading
 
 import torch
 
+from raytracer_tpu_torch.utils.profiling import count, span
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_ROOT, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "torch_kernels")
@@ -63,6 +65,7 @@ def _nvcc_start(src, out, verbose):
                             stderr=subprocess.STDOUT, text=True)
 
 
+@span("rtx.kernel_build")
 def build_all(names=SOURCES, verbose: bool = False) -> dict:
     """Compile every named source (unconditionally), one nvcc process
     each, all started together.  Returns {name: compiler output};
@@ -70,6 +73,7 @@ def build_all(names=SOURCES, verbose: bool = False) -> dict:
     fails.  Each library is written to a per-process file and renamed
     into place, so a concurrent loader never sees half a file."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    count("kernel_builds", len(names))
     procs = {}
     for name in names:
         src, lib = _paths(name)
@@ -95,12 +99,14 @@ def load(name, setup):
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src, path = _paths(name)
-        if (not os.path.exists(path)
-                or os.path.getmtime(src) > os.path.getmtime(path)):
-            build_all((name,))
-        lib = ctypes.CDLL(path)
-        setup(lib)
+        with span("rtx.kernel_load", name=name):
+            src, path = _paths(name)
+            if (not os.path.exists(path)
+                    or os.path.getmtime(src) > os.path.getmtime(path)):
+                build_all((name,))
+            lib = ctypes.CDLL(path)
+            setup(lib)
+            count("kernel_loads")
         _libs[name] = lib
         return lib
 
@@ -114,8 +120,10 @@ def load_from(name, src, setup, verbose: bool = False):
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR,
                        f"lib{name}_from{next(_builds)}.{os.getpid()}.so")
-    proc = _nvcc_start(os.path.abspath(src), out, verbose)
-    report, _ = proc.communicate()
+    with span("rtx.kernel_build", name=name):
+        count("kernel_builds")
+        proc = _nvcc_start(os.path.abspath(src), out, verbose)
+        report, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"{src}: nvcc failed ({proc.returncode}):\n"
                            f"{report}")

@@ -23,7 +23,8 @@ on the CPU only; for CUDA tensors it launches its kernel or raises.
 Each keeps a launch count (`bvh_spawn.launches`,
 `bvh_shadow_shade.launches`, `bvh_closest.launches`) that only a kernel
 launch raises, and can write, per ray, the ray-triangle tests its warp
-ran (`tests_out`).
+ran (`tests_out`).  Each runs in a span of its name (`rtx.bvh_spawn`,
+...; utils/profiling.py): the host side of its launch.
 
 `bvh_tests_needed` runs the per-ray walk of the first versions on the
 card as a counting entry (no plain version, no launch count, never on a
@@ -54,6 +55,7 @@ from raytracer_tpu_torch.core.shade import _normalize, pow32
 from raytracer_tpu_torch.models.types import resolve_device
 from raytracer_tpu_torch.ops import cuda_build
 from raytracer_tpu_torch.ops.bvh import build_bvh2
+from raytracer_tpu_torch.utils.profiling import span
 from raytracer_tpu_torch.ops.cuda_build import (Fl, I, L, P, check_cuda,
                                                 counted, cuda_stream, event,
                                                 ptr, raise_on,
@@ -333,6 +335,7 @@ def bvh_closest_plain(rays, bvh: PackedBVH, rec=None, *, shadow=False):
 # --- wrappers -------------------------------------------------------------
 
 
+@span("rtx.bvh_spawn")
 def bvh_spawn(rays, gauss, light_pos, bvh: PackedBVH, rec, *, world_lo,
               world_inv_span, children: int, emit_uv: bool,
               key_mode: str = "dir6", ray_block: int = DEFAULT_RAY_BLOCK,
@@ -404,6 +407,7 @@ bvh_spawn.launches = 0
 bvh_spawn.events = None     # a list: (start, end, rays) of each launch
 
 
+@span("rtx.bvh_shadow_shade")
 def bvh_shadow_shade(shadow_rays, normal, color, view, light_color,
                      bvh: PackedBVH, *, ray_block: int = DEFAULT_RAY_BLOCK,
                      tests_out=None):
@@ -448,6 +452,7 @@ bvh_shadow_shade.launches = 0
 bvh_shadow_shade.events = None
 
 
+@span("rtx.bvh_closest")
 def bvh_closest(rays, bvh: PackedBVH, rec=None, *, t_limit=None,
                 shadow: bool = False, exact_order=None, stream=False,
                 ray_block: int = DEFAULT_RAY_BLOCK, tests_out=None):

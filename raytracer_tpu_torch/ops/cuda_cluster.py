@@ -15,9 +15,11 @@ take).  The
 wrapper checks its operands' shapes on any device, then runs the plain
 version for tensors on the CPU only; for CUDA tensors it launches the
 kernel or raises.  It keeps a launch count (`cluster_closest.launches`)
-that only a kernel launch raises.  `cluster_tests_needed` runs the
-per-ray walk of the first version on the card as a counting entry (the
-yardstick of the kernel's bound; no plain version, no launch count).
+that only a kernel launch raises, and runs in the span
+`rtx.cluster_closest` (utils/profiling.py).  `cluster_tests_needed`
+runs the per-ray walk of the first version on the card as a counting
+entry (the yardstick of the kernel's bound; no plain version, no launch
+count).
 Built with nvcc for sm_90a on first use into ``build/torch_kernels/``
 and bound through ctypes (ops/cuda_build.py).
 """
@@ -40,6 +42,7 @@ from raytracer_tpu_torch.ops.cuda_bvh import (DEFAULT_RAY_BLOCK,
                                               SHADOW_T_MAX, SHADOW_T_MIN,
                                               closest_plain, hit_dict,
                                               rays_from)
+from raytracer_tpu_torch.utils.profiling import span
 
 # what an invalid-value error of the cluster kernel means
 WALK_SHAPES = ("a shape the walk does not take "
@@ -106,6 +109,7 @@ def cluster_closest_plain(rays, grid: PackedGrid):
     return dict(t=t, u=uu, v=vv, slot=slot.to(torch.int32))
 
 
+@span("rtx.cluster_closest")
 def cluster_closest(rays, grid: PackedGrid, *, t_limit=None,
                     ray_block: int = DEFAULT_RAY_BLOCK, tests_out=None):
     """Closest hit of every ray over the cluster grid (replaces

@@ -6,26 +6,32 @@ Capability parity with the reference's standalone `timing` crate
 (reference: timing/src/lib.rs:11-109): `start/stop` named sections,
 RAII-style scopes (`time_scope` as a context manager instead of a Drop
 guard), per-name mean/total aggregation, and a report sorted by total
-time descending.
+time descending.  Each section also keeps its first interval's seconds,
+and `add` takes an interval measured elsewhere (the program's spans,
+utils/profiling.py, keep their aggregates here).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 
-@dataclass
+@dataclass(slots=True)
 class _Section:
     total: float = 0.0
     count: int = 0
     started: float | None = None
+    first: float | None = None
 
 
 @dataclass
 class BenchMark:
     sections: dict = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
     def start(self, name: str):
         """timing/src/lib.rs:18-24"""
@@ -36,9 +42,28 @@ class BenchMark:
         sec = self.sections.get(name)
         if sec is None or sec.started is None:
             raise KeyError(f"timing section {name!r} was never started")
-        sec.total += time.perf_counter() - sec.started
-        sec.count += 1
+        elapsed = time.perf_counter() - sec.started
         sec.started = None
+        self.add(name, elapsed)
+
+    def add(self, name: str, seconds: float):
+        """One interval of `seconds` under `name` (thread-safe)."""
+        with self._lock:
+            sec = self.sections.get(name)
+            if sec is None:
+                sec = self.sections[name] = _Section()
+            if sec.first is None:
+                sec.first = seconds
+            sec.total += seconds
+            sec.count += 1
+
+    def snapshot(self) -> dict:
+        """{name: {"calls", "total_s", "first_s"}} of every section
+        (thread-safe)."""
+        with self._lock:
+            return {name: {"calls": s.count, "total_s": s.total,
+                           "first_s": s.first}
+                    for name, s in self.sections.items()}
 
     @contextmanager
     def time_scope(self, name: str):

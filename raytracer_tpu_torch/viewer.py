@@ -11,7 +11,8 @@ The equivalent of the reference's two interactive frontends:
   becomes a page polling /frame.png.
 
 Routes: `/` (the page), `/frame.png` (the latest frame, encoded with
-utils/png_io's zlib encoder), `/stats` (frames, fps, rays/s as JSON) and
+utils/png_io's zlib encoder), `/stats` (frames, fps, rays/s and the
+program's counters, `utils.profiling.counters()`, as JSON) and
 `/key/<k>`.  Keyboard camera controls mirror main.rs:107-169: arrows +
 comma/period move, WASD rotates; every move clears the film.
 
@@ -32,6 +33,7 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from raytracer_tpu_torch.utils.png_io import encode_png
+from raytracer_tpu_torch.utils.profiling import counters
 from raytracer_tpu_torch.utils.stats import Stats
 
 INDEX_HTML = """<!doctype html>
@@ -175,8 +177,9 @@ class Viewer:
                         self._send(404, "text/plain", b"no frame yet")
                 elif self.path.startswith("/stats"):
                     with viewer._lock:
-                        body = json.dumps({k: viewer.state[k] for k in
-                                           ("frames", "fps", "rays_per_sec")})
+                        state = {k: viewer.state[k] for k in
+                                 ("frames", "fps", "rays_per_sec")}
+                    body = json.dumps(dict(state, counters=counters()))
                     self._send(200, "application/json", body.encode())
                 elif self.path.startswith("/key/"):
                     action = _KEYMAP.get(self.path[len("/key/"):])

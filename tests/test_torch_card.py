@@ -786,6 +786,41 @@ class _SplitNumpyDraws(_NumpyDraws):
                 for s in self.rng.integers(0, 2 ** 62, size=n)]
 
 
+def test_fused_wrapper_spans_nest_in_levels(card):
+    """Under torch.profiler on the card, a fused render's wrapper spans
+    (`rtx.bvh_spawn`, `rtx.bvh_shadow_shade`) lie inside its `rtx.level`
+    spans, and each fused kernel starts after a span of its wrapper began:
+    spans and device operations share one timeline."""
+    from torch.profiler import ProfilerActivity, profile
+    from raytracer_tpu_torch.inline_scene import create_inline_raytracer
+    rt = create_inline_raytracer(width=64, height=64, device=card)
+    assert rt.fused
+    rt.render(8)                        # the kernels built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.render(8)
+        torch.cuda.synchronize()
+    host, dev = {}, {}
+    for e in prof.events():
+        where = (dev if e.device_type == torch.autograd.DeviceType.CUDA
+                 else host)
+        where.setdefault(e.name, []).append((e.time_range.start,
+                                             e.time_range.end))
+    levels = host["rtx.level"]
+    assert len(levels) == 3
+    for name, kernel in (("rtx.bvh_spawn", "spawn_kernel"),
+                         ("rtx.bvh_shadow_shade", "shadow_shade_kernel")):
+        spans = host[name]
+        assert len(spans) == 3
+        assert all(any(s <= a and b <= e for s, e in levels)
+                   for a, b in spans), name
+        starts = [a for k, ivs in dev.items() if kernel in k
+                  and not k.startswith("rtx.") for a, _ in ivs]
+        assert len(starts) == 3, (kernel, sorted(dev))
+        assert all(any(s <= a for s, _ in spans) for a in starts)
+
+
 @pytest.fixture(scope="module")
 def nccl():
     """A one-rank NCCL process group on the card for the module's tests,

@@ -58,12 +58,12 @@ def test_timing_benchmark():
 
 
 def test_profiling_trace_and_annotate(tmp_path):
-    """trace(log_dir) writes a torch.profiler trace there; annotate()
-    names a region that shows up in it."""
+    """trace(log_dir) writes a torch.profiler trace there; span() names a
+    region that shows up in it."""
     import os
-    from raytracer_tpu_torch.utils.profiling import annotate, trace
+    from raytracer_tpu_torch.utils.profiling import span, trace
     with trace(str(tmp_path / "prof")) as prof:
-        with annotate("render-frame"):
+        with span("render-frame"):
             torch.ones(64).cumsum(0)
     assert "render-frame" in {e.key for e in prof.key_averages()}
     path = tmp_path / "prof" / "trace.json"
@@ -224,6 +224,11 @@ def test_viewer_serves_frames_stats_and_keys():
         assert img.shape == (16, 24, 3) and img.max() > 0
         stats = json.loads(_get(viewer.port, "/stats")[2])
         assert stats["frames"] >= 3 and stats["rays_per_sec"] > 0
+        # the program's counters: 2 cursor positions, frames read back
+        counters = stats["counters"]
+        assert counters["row_block_builds"] >= 2
+        assert counters["readback_bytes"] >= 3 * 16 * 24 * 3
+        assert "launches.bvh_spawn" in counters
         assert _get(viewer.port, "/key/w")[2] == b"ok"
         _wait(lambda: rt.camera.x_angle_radians != 0.0, "the key")
     finally:
