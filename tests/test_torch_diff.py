@@ -40,7 +40,6 @@ from raytracer_tpu_torch.models.camera import CameraParams
 from raytracer_tpu_torch.models.types import SceneArrays
 from tests import fixtures
 from tests.test_torch_wavefront import ThreefryStream
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL_REL = 1e-3, 1e-5
 

@@ -8,7 +8,6 @@ import torch
 
 import raytracer_tpu_torch as rtx
 from raytracer_tpu_torch.core.engine import TorchDraws, TorchStream
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 16
 

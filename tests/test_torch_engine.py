@@ -16,7 +16,6 @@ from raytracer_tpu_torch import RayTracer, create_raytracer_from_file
 from raytracer_tpu_torch.core.tonemap import pack_u32, simple_map
 from raytracer_tpu_torch.models.collada import ColladaLoader
 from tests.test_torch_wavefront import ThreefryDraws
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 16
 

@@ -18,7 +18,6 @@ from raytracer_tpu_torch.core.wavefront import (trace_radiance,
 from raytracer_tpu_torch.models.camera import generate_rays
 from raytracer_tpu_torch.parallel import pixel_grid
 from tests.test_torch_wavefront import ThreefryDraws
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 16
 SPP = 2

@@ -20,7 +20,6 @@ from raytracer_tpu_torch.core.intersectors import BruteForceIntersector
 from raytracer_tpu_torch.core.shade import sample_diffuse
 from raytracer_tpu_torch.models.camera import generate_rays
 from raytracer_tpu_torch.models.collada import ColladaLoader
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 96, 96
 

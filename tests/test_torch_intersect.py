@@ -38,7 +38,6 @@ from raytracer_tpu_torch.ops import cuda_cluster
 from raytracer_tpu_torch.ops.cluster import build_cluster_grid, morton_codes
 from raytracer_tpu_torch.ops.cuda_bvh import rays_from
 from raytracer_tpu_torch.ops.cuda_cluster import ClusterIntersector
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 
 def random_scene(n=300, seed=1):

@@ -35,7 +35,6 @@ from raytracer_tpu_torch.parallel import (Mesh, initialize_distributed,
                                           ray_sharding, replicated)
 from raytracer_tpu_torch.parallel.mesh import all_gather_rays
 from tests.test_torch_wavefront import ThreefryDraws
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 16
 N = 8

@@ -18,7 +18,6 @@ from raytracer_tpu_torch.models.collada import Collada, ColladaError, ColladaLoa
 from raytracer_tpu_torch.models.types import SceneArrays
 from raytracer_tpu_torch.ops.bvh import build_bvh2
 from tests import fixtures
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 SCENES = [("4boxes.dae", 48), ("ico2.dae", 608), ("ico3_tex.dae", 608),
           ("thai2.dae", 20049)]

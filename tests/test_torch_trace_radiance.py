@@ -36,7 +36,6 @@ from raytracer_tpu_torch.models.types import SceneArrays
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 from raytracer_tpu_torch.ops.cuda_cluster import ClusterIntersector
 from tests.test_torch_wavefront import ThreefryStream
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
 
 
 def _assert_flip_bound(got, want):

@@ -28,7 +28,7 @@ from raytracer_tpu_torch.utils.png_io import (decode_png, encode_png,
                                               u32_to_rgba8, write_png)
 from raytracer_tpu_torch.utils.stats import Stats
 from raytracer_tpu_torch.utils.timing import BenchMark
-from tests.test_torch_wavefront import torch_threads  # noqa: F401 (autouse)
+from tests.test_torch_wavefront import TORCH_THREADS
 
 
 def test_stats_meter():
@@ -258,3 +258,11 @@ def test_native_deindex_matches_reference():
     assert got.dtype == np.float32 and got.shape == (3000, 3)
     np.testing.assert_array_equal(got, verts[idx])
     np.testing.assert_array_equal(got, jax_native.deindex(verts, idx))
+
+
+def test_torch_threads_hold_the_suite_budget():
+    """Importing test_torch_wavefront sets one torch thread budget per
+    worker before any test runs; a test file that resets it would run
+    every later file of its worker on another count."""
+    assert torch.get_num_threads() == TORCH_THREADS
+    assert torch.get_num_interop_threads() == TORCH_THREADS

@@ -1,9 +1,15 @@
 """The port's fused wavefront (core/wavefront.py) against the JAX
 package's trace_radiance_fused with its Pallas kernels in interpret
 mode: same scene, same BVH arrays, same primary rays, and the same
-threefry draws (replayed through the adapter below)."""
+threefry draws (replayed through the adapter below).
+
+Importing this module also sets, once per pytest process, what the
+port's test files share (several of them import it, and xdist workers
+import every test file while collecting, before any test runs): one
+torch thread budget and JAX's inline CPU dispatch."""
 
 import dataclasses
+import os
 
 import numpy as np
 import jax
@@ -23,18 +29,23 @@ from raytracer_tpu_torch.models.types import SceneArrays
 from raytracer_tpu_torch.ops import cuda_bvh
 from raytracer_tpu_torch.ops.cuda_bvh import BVHIntersector
 
+# The suite runs several pytest workers at once (xdist sets the count),
+# and torch's default of a thread per core then oversubscribes the CPU;
+# the port's test shapes are small, so its ops gain nothing from more
+# than 2 threads.
+WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+TORCH_THREADS = max(1, min(2, len(os.sched_getaffinity(0)) // WORKERS))
+torch.set_num_threads(TORCH_THREADS)
+torch.set_num_interop_threads(TORCH_THREADS)
 
-@pytest.fixture(scope="module", autouse=True)
-def torch_threads():
-    """At most 2 torch CPU threads while a module's tests run (the port's
-    test files import this fixture).  The suite runs several pytest
-    workers at once, and torch's default of a thread per core then
-    oversubscribes the CPU; the port's test shapes are small, so its ops
-    gain nothing from more threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+# The JAX references' Pallas kernels run in interpret mode, whose
+# io_callbacks dispatch jnp ops of their own.  With asynchronous CPU
+# dispatch, a jnp op the test thread dispatches on a kernel's outputs
+# and one the callback dispatches can wait on each other for ever on a
+# loaded CPU (both threads then sit in jnp's dispatch).  Inline dispatch
+# changes no result.  It is read when JAX makes its CPU client, which no
+# test file does while being collected.
+jax.config.update("jax_cpu_enable_async_dispatch", False)
 
 
 class ThreefryStream:
