@@ -9,6 +9,11 @@ seeded from the k-th number of a host generator seeded with the sample's
 seed (k = 0 for the jitter, 1 + level for a level).  So the timed draws
 cost what the product's cost, and the reference regenerates the same
 numbers from the recorded sample seeds (`Stream(seed, device)`).
+
+`Draws.split(n)` (the port's `TorchDraws.split`, which
+`RayTracer.render_sharded` calls once a render): one frame source seeded
+from the next draw of this one, then `n` sources seeded from the frame
+source's draws, one a rank.
 """
 
 from __future__ import annotations
@@ -66,3 +71,17 @@ class Draws:
     def next_sample(self, n: int):
         stream = Stream(draw_seed(self._host), self.device)
         return stream.jitter(n), stream
+
+    def split(self, n: int):
+        frame = Draws(draw_seed(self._host), self.device)
+        return [Draws(draw_seed(frame._host), self.device)
+                for _ in range(n)]
+
+
+def split_sample_seeds(seed: int, renders: int, ranks: int, spp: int):
+    """[render][rank]: the seeds of the `spp` samples each rank draws in
+    each of the first `renders` renders of a `Draws(seed)` split into
+    `ranks` sources a render."""
+    draws = Draws(seed, "cpu")
+    return [[[draw_seed(part._host) for _ in range(spp)]
+             for part in draws.split(ranks)] for _ in range(renders)]

@@ -7,14 +7,18 @@ drives the program and whose other keys are that loop's parameters.
 - "progressive": closed-loop viewer frames, `trace_frame_additive()`
   then `get_tonemapped_pixels()`, with a camera move after every pass.
 - "inverse": inverse-rendering steps of `diff.inverse.make_train_step`.
+- "sharded": closed-loop `RayTracer.render_sharded(spp)` of one frame
+  over `ranks` processes, one card each.
 
-Each loop is a session class (`portbench/drivers/`): `setup()` builds
-the program and warms up every shape the window uses, `run_unit()` runs
-one render, frame or step and returns its seconds, `end_to_end()` turns
-the window into the cell's end-to-end metrics, `kept()` gives what the
-check compares, `release()` frees the program's state, and
-`reference(dtype)` and `compare(got, want)` compute the plain
-reference's answers and the numbers compared.
+A mix of kind `k` is driven by `portbench/drivers/<k>.py`, found by its
+file name, so a new loop is a new file.  Each loop is a session class
+(`Session` in that file): `setup()` builds the program and warms up
+every shape the window uses, `run_unit()` runs one render, frame or
+step and returns its seconds, `end_to_end()` turns the window into the
+cell's end-to-end metrics, `kept()` gives what the check compares,
+`release()` frees the program's state, and `reference(dtype)` and
+`compare(got, want)` compute the plain reference's answers and the
+numbers compared.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import importlib
 import json
 import os
 
-KINDS = {"render": "portbench.drivers.render",
-         "progressive": "portbench.drivers.progressive",
-         "inverse": "portbench.drivers.inverse"}
+DRIVERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "drivers")
+# kind -> its loop: every module of portbench/drivers/ but the shared ones
+KINDS = {f[:-3]: f"portbench.drivers.{f[:-3]}"
+         for f in sorted(os.listdir(DRIVERS))
+         if f.endswith(".py") and f not in ("__init__.py", "base.py")}
 
 
 def load_json(root, *parts):

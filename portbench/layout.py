@@ -7,6 +7,9 @@ the reference and the roofline's yardstick.
 - `trace_frame_additive()`: the frame's block of rows, ordered by
   (row // 8, column // 16, row % 8, column % 16).
 - the inverse step: the pixels it is given, row-major.
+- `render_sharded(spp)` over n ranks: the row-major frame, padded at its
+  end to a multiple of n, cut into n equal slices in rank order; a rank
+  hands its slice to its own draw source in that order.
 
 Within a sample, the ray at draw index i takes jitter row i, the
 Gaussians of its two level-1 children from rows 2i and 2i + 1 of the
@@ -49,3 +52,11 @@ def row_block(first_row, rows, width, height):
     order = np.lexsort((px % TILE_W, py % TILE_H, px // TILE_W,
                         py // TILE_H))
     return px[order], py[order]
+
+
+def row_major_slice(px, py, width, height, ranks):
+    """(rank, draw index, rays a sample) of pixels (px, py) in
+    `render_sharded` order over `ranks` ranks."""
+    share = -(-(width * height) // ranks)
+    flat = py * width + px
+    return flat // share, flat % share, share

@@ -8,13 +8,16 @@ refuses to run without a card.  Run with
 from __future__ import annotations
 
 import ast
+import importlib
 import json
 import os
 import re
 import subprocess
 import sys
+import time
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +42,10 @@ TINY = {
                                            "frames_per_pass": 5,
                                            "check": {"pixels": 48}}},
     "ico3_tex_1024.inverse": {"config": {"width": 16, "height": 16}},
+    # two gloo ranks on the CPU
+    "thai2_1024.sharded4": {"config": {"width": 16, "height": 16},
+                            "traffic": {"spp": 2, "pool": 2, "ranks": 2,
+                                        "check": {"pixels": 96}}},
 }
 
 
@@ -97,9 +104,11 @@ def test_benchmark_json_keeps_its_rules():
         assert os.path.isfile(os.path.join(ROOT, c["file"]))
         assert 1 <= len(c["why"]) <= 200 and 1 <= len(c["source"]) <= 200
     pairs = set()
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4)
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
         assert NAME.match(w["traffic"]) and NAME.match(w["config"])
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
@@ -186,7 +195,8 @@ def test_cell_runs_and_agrees_at_a_tiny_size(cell, trace):
                        overrides=TINY[cell])
     assert res["correct"], res["checks"]
     assert list(res)[-1] == "checks" and res["attempted"] >= 1
-    assert res["failed"] == 0 and res["device"]["count"] == 1
+    assert res["failed"] == 0
+    assert res["device"]["count"] == _cell(cell)["chips"]
     names = {m["name"] for m in run._cell_metrics(BENCH, cell, "end_to_end")}
     if trace:
         # no device here: every device reading finds nothing
@@ -201,14 +211,169 @@ def _kind(cell):
     return load_json(ROOT, "traffic", f"{_cell(cell)['traffic']}.json")["kind"]
 
 
+def _loop(cell):
+    return importlib.import_module(KINDS[_kind(cell)])
+
+
+def _plant(port, cell, fault):
+    """`fault` in the program: the loop's own `plant` where its module has
+    one (the sharded loop plants on every rank), else faults.py's."""
+    own = getattr(_loop(cell), "plant", None)
+    return own(port, fault) if own else plant(port, _kind(cell), fault)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("fault", FAULTS)
 def test_a_planted_fault_is_not_correct(cell, fault):
     port = run.import_port()
-    with plant(port, _kind(cell), fault):
+    with _plant(port, cell, fault):
         res = run.run_cell(cell, 2 ** 31 + 12, 0.2, False, device="cpu",
                            overrides=TINY[cell])
     assert not res["correct"], (fault, res["checks"])
+
+
+# faults a loop has beyond the common three (the exchange between cards)
+OWN_FAULTS = [(c, f) for c in CELLS
+              for f in getattr(_loop(c), "FAULTS", FAULTS)
+              if f not in FAULTS]
+
+
+@pytest.mark.parametrize("cell,fault", OWN_FAULTS)
+def test_a_loops_own_fault_is_not_correct(cell, fault):
+    port = run.import_port()
+    with _plant(port, cell, fault):
+        res = run.run_cell(cell, 2 ** 31 + 15, 0.2, False, device="cpu",
+                           overrides=TINY[cell])
+    assert not res["correct"], (fault, res["checks"])
+
+
+def test_kinds_are_found_by_file_name():
+    assert KINDS == {"render": "portbench.drivers.render",
+                     "progressive": "portbench.drivers.progressive",
+                     "inverse": "portbench.drivers.inverse",
+                     "sharded": "portbench.drivers.sharded"}
+    for module in KINDS.values():
+        assert hasattr(importlib.import_module(module), "Session")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_cells_ranks_are_its_chips(cell):
+    assert load_json(ROOT, "traffic", f"{_cell(cell)['traffic']}.json").get(
+        "ranks", 1) == _cell(cell)["chips"]
+
+
+def _alive(pid):
+    """A process that runs (a zombie has ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+DEAD_RANK = """
+import os, signal, sys
+sys.path.insert(0, {root!r})
+from portbench import run
+from portbench.drivers import sharded
+setup = sharded.Session.setup
+
+def setup_then_kill(self):
+    setup(self)
+    print("PIDS", *[p.pid for p in self.workers], flush=True)
+    os.kill(self.workers[-1].pid, signal.SIGKILL)
+
+sharded.Session.setup = setup_then_kill
+run.run_cell({cell!r}, 2 ** 31 + 16, 300.0, False, device="cpu",
+             overrides={over!r})
+print("RESULT", flush=True)
+"""
+
+
+def test_a_dead_rank_ends_the_run():
+    """A worker killed after set-up: the run fails long before its
+    window of 300 s would end, prints no result, and leaves no process."""
+    cell = next(c for c in CELLS if _kind(c) == "sharded")
+    code = DEAD_RANK.format(root=ROOT, cell=cell, over=TINY[cell])
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=200)
+    took = time.monotonic() - t0
+    assert out.returncode != 0 and "RESULT" not in out.stdout, out.stderr
+    pids = [int(p) for p in out.stdout.split("PIDS", 1)[1].split()]
+    assert pids and not any(_alive(p) for p in pids)
+    assert took < 120, took
+
+
+def test_each_rank_gets_its_own_cores(monkeypatch):
+    from portbench.drivers import sharded
+    cores = list(range(8))
+    monkeypatch.setattr(sharded.os, "sched_getaffinity", lambda pid: cores)
+    assert sharded._blocks(4) == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert sharded._blocks(3) == [[0, 1], [2, 3], [4, 5]]
+    assert sharded._blocks(16) == [[k] for k in range(8)] + [cores] * 8
+
+
+def test_draws_split_is_the_ports():
+    """`Draws.split` and `split_sample_seeds` give the draws of the
+    port's `TorchDraws.split`, render after render."""
+    from portbench.draws import Draws, Stream, split_sample_seeds
+    seed, ranks, spp = 2 ** 31 + 17, 4, 3
+    port = run.import_port()
+    theirs = port.TorchDraws(seed, "cpu")
+    mine = Draws(seed, "cpu")
+    seeds = split_sample_seeds(seed, 2, ranks, spp)
+    for render in range(2):
+        for r, (a, b) in enumerate(zip(theirs.split(ranks),
+                                       mine.split(ranks))):
+            for k in range(spp):
+                ja, sa = a.next_sample(5)
+                jb, sb = b.next_sample(5)
+                s = Stream(seeds[render][r][k], "cpu")
+                assert torch.equal(ja, jb) and torch.equal(ja, s.jitter(5))
+                for level in (0, 1):
+                    assert torch.equal(sa.normal(level, 10),
+                                       sb.normal(level, 10))
+                    assert torch.equal(sa.normal(level, 10),
+                                       s.normal(level, 10))
+
+
+@pytest.mark.parametrize("w,h,ranks", [(16, 16, 2), (7, 5, 4), (1024, 1024, 4)])
+def test_row_major_slice_is_the_ports(w, h, ranks):
+    from portbench.layout import row_major_slice
+    port = run.import_port()
+    px, py, real = port.parallel.pixel_grid(w, h, pad_to=ranks)
+    share = len(px) // ranks
+    rank, idx, n = row_major_slice(px[:real], py[:real], w, h, ranks)
+    assert n == share
+    assert (rank == np.arange(real) // share).all()
+    assert (idx == np.arange(real) % share).all()
+
+
+def test_sharded_readers():
+    events = [_event("portbench.render", False, 0, 1000),
+              _event("rtx.all_gather", False, 100, 160),
+              _event("rtx.all_gather", False, 600, 640),
+              _event("void spawn_kernel<1>(SpawnArgs)", True, 10, 110),
+              _event("shadow_shade_kernel(ShadowArgs)", True, 110, 150),
+              _event("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgs)",
+                     True, 150, 400),
+              _event("ncclKernel_Broadcast_RING_LL_Sum_int8_t", True, 500,
+                     520)]
+    prof = Profile(SimpleNamespace(events=lambda: events), 1e-3)
+    card = SimpleNamespace(device=torch.device("cuda"))
+    r = run.Run(prof, 2, card, None, 0)
+    assert run._read_metric("collective_ms.sharded4", r) == \
+        pytest.approx(0.135)
+    assert run._read_metric("gather_span_ms.sharded4", r) == \
+        pytest.approx(0.05)
+    assert run._read_metric("fused_kernel_ms.sharded4", r) == \
+        pytest.approx(0.07)
+    assert run._read_metric("device_idle_pct.sharded4", r) == \
+        pytest.approx(59.0)
+    off = run.Run(prof, 2, SimpleNamespace(device=torch.device("cpu")),
+                  None, 0)
+    assert run._read_metric("gather_span_ms.sharded4", off) is None
 
 
 @pytest.mark.parametrize("fault", (None,) + FAULTS)
@@ -286,6 +451,9 @@ def test_cell_on_the_card_at_a_small_size(cell):
     over = {"config": {"width": 64, "height": 64}}
     if cell.endswith("progressive"):
         over["traffic"] = {"rows_per_frame": 8, "frames_per_pass": 5}
+    chips = _cell(cell)["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA cards")
     res = run.run_cell(cell, 2 ** 31 + 13, 0.5, True, overrides=over)
     assert res["correct"], res["checks"]
     assert res["device"]["busy_s"] > 0 and res["metrics"]
