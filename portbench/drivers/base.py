@@ -26,13 +26,21 @@ class SessionBase:
         self.draws = Draws(seed, self.device)
 
     def check_fused(self, rt):
-        """The configuration's fused path and record format, as run."""
+        """The configuration's fused path and record format, as run, and
+        a texel fetch on a textured scene: a textured render that ran
+        flat would render another image than the reference's."""
         isect = rt.intersector
-        if self.cfg["accel"] == "bvh" and not (
-                rt.fused and isect.rec_format == self.cfg["records"]):
+        if self.cfg["accel"] != "bvh":
+            return
+        if not (rt.fused and isect.rec_format == self.cfg["records"]):
             raise RuntimeError(f"{self.cfg['name']}: the BVH render does "
                                f"not run the fused path on "
                                f"{self.cfg['records']!r} records")
+        textured = bool((rt.scene_buffers.mat_tex_id >= 0).any())
+        if isect.fused_has_textures != textured:
+            raise RuntimeError(f"{self.cfg['name']}: the fused path fetches "
+                               f"texels: {isect.fused_has_textures}, the "
+                               f"scene has a texture: {textured}")
 
     def rng(self, *key):
         """A numpy generator for the check's choices, from the seed and

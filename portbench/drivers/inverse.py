@@ -2,7 +2,9 @@
 the BVH (`make_intersector("bvh")`, no shading records, so the closest
 hits run in `bvh_closest` and the gradients through
 `core.intersect.winner_grad`), every pixel of the frame at 1 sample a
-step, each step on the next sample of the draws.  The end-to-end
+step.  It runs the composable wavefront, never the fused kernels, and
+reads no `records` of the configuration (that key is the fused render's);
+each step takes the next sample of the draws.  The end-to-end
 metric is the window over the steps completed in it; each step ends in
 a synchronisation.
 

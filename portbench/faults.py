@@ -12,15 +12,22 @@ For each kind of loop, the faults it can have on one card:
 - "altered": an answer altered where it is produced (every radiance
   5 % brighter; the packed blue channel 16 levels up; the loss 1.5
   times what it is).
+
+And one a textured scene can have in a fused loop on one card, left out of
+`FAULTS` since a scene without a texture cannot show it:
+- "flat_texels": the texel fetch left out, the material's flat colour
+  kept where the texture id is >= 0 (`core.wavefront._level_colors`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import types
 
 import torch
 
 FAULTS = ("unchanged", "half", "altered")
+TEXTURE_FAULTS = ("flat_texels",)
 
 
 @contextlib.contextmanager
@@ -35,6 +42,15 @@ def _patched(obj, name, value):
 
 def plant(port, kind, fault):
     """A context manager in which the program has `fault`."""
+    if fault == "flat_texels":
+        wavefront = port.core.wavefront
+        colors = wavefront._level_colors
+
+        def flat(scene, isect, sres):
+            untextured = types.SimpleNamespace(rec_format=isect.rec_format,
+                                               fused_has_textures=False)
+            return colors(scene, untextured, sres)
+        return _patched(wavefront, "_level_colors", flat)
     engine = port.core.engine
     rt = engine.RayTracer
     if kind == "render":

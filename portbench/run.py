@@ -10,10 +10,12 @@ traffic mix (`portbench/traffic/<mix>.json`, read by
 `portbench/generator.py`), the limits of its check
 (`portbench/checks/<workload>.json`) and its per-layer metrics
 (`portbench/metrics/<metric>.py`) are found by name from
-`BENCHMARK.json`.  A run builds the program and warms up every shape
-the window uses (set-up), runs the mix's units back to back until
-`--seconds` have passed (the window ends with the unit that crosses
-it), then checks what the window produced against the plain reference
+`BENCHMARK.json`; a metric with a file `portbench/aliases/<metric>.json`
+reports, under its own name, the reading of the metric that file names.
+A run builds the program and warms up every shape the window uses
+(set-up), runs the mix's units back to back until `--seconds` have
+passed (the window ends with the unit that crosses it), then checks
+what the window produced against the plain reference
 (`portbench/reference/`) once the program's state is freed.  The last
 line of standard output is one JSON object: `correct`, `attempted`,
 `failed`, `metrics` (the cell's end-to-end metrics; with `--trace 1`,
@@ -99,8 +101,20 @@ def _cell_metrics(bench, workload, key):
             if workload in m.get("workloads", [workload])]
 
 
+def _source(name):
+    """The metric whose reading metric `name` reports: the "reads" of
+    `portbench/aliases/<name>.json` where that file exists (a cell under a
+    bound of its own reports a loop's rate, and its readers' numbers,
+    under names of its own), else `name` itself."""
+    path = os.path.join(ROOT, "portbench", "aliases", f"{name}.json")
+    if not os.path.isfile(path):
+        return name
+    with open(path) as f:
+        return json.load(f)["reads"]
+
+
 def _read_metric(name, run):
-    path = os.path.join(ROOT, "portbench", "metrics", f"{name}.py")
+    path = os.path.join(ROOT, "portbench", "metrics", f"{_source(name)}.py")
     spec = importlib.util.spec_from_file_location(
         "portbench_metric_" + name.replace(".", "_"), path)
     module = importlib.util.module_from_spec(spec)
@@ -202,7 +216,8 @@ def run_cell(workload, seed, seconds, trace, device="cuda", overrides=None):
     else:
         values = dict(session.end_to_end(window_s, latencies),
                       setup_s=setup_s)
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
+        metrics = {m["name"]: {"value": values[_source(m["name"])],
+                               "unit": m["unit"]}
                    for m in _cell_metrics(bench, workload, "end_to_end")}
     result.update(metrics=metrics, device=device)
     if trace:

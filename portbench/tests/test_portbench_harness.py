@@ -32,26 +32,17 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
-# tiny sizes of each cell for the CPU (the port's plain kernels)
-TINY = {
-    "thai2_1024.render16": {"config": {"width": 16, "height": 16},
-                            "traffic": {"spp": 2, "pool": 2,
-                                        "check": {"pixels": 96}}},
-    "thai2_1024.progressive": {"config": {"width": 16, "height": 16},
-                               "traffic": {"rows_per_frame": 4,
-                                           "frames_per_pass": 5,
-                                           "check": {"pixels": 48}}},
-    "ico3_tex_1024.inverse": {"config": {"width": 16, "height": 16}},
-    # two gloo ranks on the CPU
-    "thai2_1024.sharded4": {"config": {"width": 16, "height": 16},
-                            "traffic": {"spp": 2, "pool": 2, "ranks": 2,
-                                        "check": {"pixels": 96}}},
-}
-
-
 # a mix built and checked, but not a cell of BENCHMARK.json yet (PERF.md)
 STANDBY = {"thai2_1024.progressive": {"config": "thai2_1024",
                                       "traffic": "progressive"}}
+CELLS_AND_STANDBY = CELLS + list(STANDBY)
+
+
+def tiny(cell, where="cpu"):
+    """The small sizes of `cell` for tests, `portbench/tiny/<cell>.json`:
+    "cpu" (the port's plain kernels here) or "card" (a quick run on a
+    CUDA card), as run_cell's `overrides`."""
+    return load_json(ROOT, "tiny", f"{cell}.json")[where]
 
 
 def _cell(name):
@@ -63,10 +54,11 @@ def session_numbers(cell, seed, fault=None, control=False):
     """A tiny session of `cell` on the CPU as a run drives it (set-up, a
     short window, the check): (numbers compared, their limits)."""
     w = _cell(cell)
+    over = tiny(cell)
     cfg = run._merge(load_json(ROOT, "configs", f"{w['config']}.json"),
-                     TINY[cell].get("config"))
+                     over.get("config"))
     mix = run._merge(load_json(ROOT, "traffic", f"{w['traffic']}.json"),
-                     TINY[cell].get("traffic"))
+                     over.get("traffic"))
     port = run.import_port()
     session = make_session(port, cfg, mix, seed, torch.device("cpu"), ROOT)
     if fault:
@@ -137,6 +129,8 @@ def test_cell_resolves_by_name(cell):
     cfg = load_json(ROOT, "configs", f"{w['config']}.json")
     mix = load_json(ROOT, "traffic", f"{w['traffic']}.json")
     limits = load_json(ROOT, "checks", f"{cell}.json")
+    assert os.path.isfile(os.path.join(ROOT, "portbench", "tiny",
+                                       f"{cell}.json"))
     assert mix["kind"] in KINDS
     assert os.path.isfile(os.path.join(ROOT, cfg["scene"]))
     assert os.path.isfile(os.path.join(ROOT, cfg["reference"]))
@@ -146,8 +140,45 @@ def test_cell_resolves_by_name(cell):
     layers = run._cell_metrics(BENCH, cell, "per_layer")
     assert layers
     for m in layers:
-        path = os.path.join(ROOT, "portbench", "metrics", f"{m['name']}.py")
+        path = os.path.join(ROOT, "portbench", "metrics",
+                            f"{run._source(m['name'])}.py")
         assert os.path.isfile(path), path
+
+
+def test_every_alias_reads_a_metric_of_its_kind():
+    """An alias is a metric of BENCHMARK.json that reports another's
+    reading under its own name: of the same section, unit and sense, and
+    in cells that the other does not list."""
+    folder = os.path.join(ROOT, "portbench", "aliases")
+    for f in sorted(os.listdir(folder)) if os.path.isdir(folder) else []:
+        name = f[:-len(".json")]
+        source = run._source(name)
+        for key in ("end_to_end", "per_layer"):
+            named = {m["name"]: m for m in BENCH[key]}
+            if name in named:
+                mine, theirs = named[name], named[source]
+                break
+        else:
+            raise AssertionError(f"alias {name} is no metric of the benchmark")
+        assert source != name and run._source(source) == source
+        for k in ("unit", "better", "source"):
+            assert mine[k] == theirs[k], (name, k)
+        assert not set(mine.get("workloads", CELLS)) & set(
+            theirs.get("workloads", CELLS)), name
+
+
+@pytest.mark.parametrize("cell", CELLS_AND_STANDBY)
+def test_every_cell_and_standby_has_its_tiny_sizes(cell):
+    """A cell joins the tests by a data file: its sizes on the CPU and on
+    a card, each only of keys its configuration and mix have."""
+    w = _cell(cell)
+    cfg = load_json(ROOT, "configs", f"{w['config']}.json")
+    mix = load_json(ROOT, "traffic", f"{w['traffic']}.json")
+    for where in ("cpu", "card"):
+        over = tiny(cell, where)
+        assert set(over) <= {"config", "traffic"} and over["config"]
+        assert set(over["config"]) <= set(cfg), over
+        assert set(over.get("traffic", {})) <= set(mix), over
 
 
 def _imports(path):
@@ -192,7 +223,7 @@ def test_the_reference_imports_nothing_of_the_program():
 @pytest.mark.parametrize("trace", [0, 1])
 def test_cell_runs_and_agrees_at_a_tiny_size(cell, trace):
     res = run.run_cell(cell, 2 ** 31 + 11, 0.5, bool(trace), device="cpu",
-                       overrides=TINY[cell])
+                       overrides=tiny(cell))
     assert res["correct"], res["checks"]
     assert list(res)[-1] == "checks" and res["attempted"] >= 1
     assert res["failed"] == 0
@@ -228,7 +259,7 @@ def test_a_planted_fault_is_not_correct(cell, fault):
     port = run.import_port()
     with _plant(port, cell, fault):
         res = run.run_cell(cell, 2 ** 31 + 12, 0.2, False, device="cpu",
-                           overrides=TINY[cell])
+                           overrides=tiny(cell))
     assert not res["correct"], (fault, res["checks"])
 
 
@@ -243,7 +274,7 @@ def test_a_loops_own_fault_is_not_correct(cell, fault):
     port = run.import_port()
     with _plant(port, cell, fault):
         res = run.run_cell(cell, 2 ** 31 + 15, 0.2, False, device="cpu",
-                           overrides=TINY[cell])
+                           overrides=tiny(cell))
     assert not res["correct"], (fault, res["checks"])
 
 
@@ -294,7 +325,7 @@ def test_a_dead_rank_ends_the_run():
     """A worker killed after set-up: the run fails long before its
     window of 300 s would end, prints no result, and leaves no process."""
     cell = next(c for c in CELLS if _kind(c) == "sharded")
-    code = DEAD_RANK.format(root=ROOT, cell=cell, over=TINY[cell])
+    code = DEAD_RANK.format(root=ROOT, cell=cell, over=tiny(cell))
     t0 = time.monotonic()
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=200)
@@ -448,12 +479,10 @@ def test_profile_readers():
 def test_cell_on_the_card_at_a_small_size(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    over = {"config": {"width": 64, "height": 64}}
-    if cell.endswith("progressive"):
-        over["traffic"] = {"rows_per_frame": 8, "frames_per_pass": 5}
     chips = _cell(cell)["chips"]
     if torch.cuda.device_count() < chips:
         pytest.skip(f"needs {chips} CUDA cards")
-    res = run.run_cell(cell, 2 ** 31 + 13, 0.5, True, overrides=over)
+    res = run.run_cell(cell, 2 ** 31 + 13, 0.5, True,
+                       overrides=tiny(cell, "card"))
     assert res["correct"], res["checks"]
     assert res["device"]["busy_s"] > 0 and res["metrics"]

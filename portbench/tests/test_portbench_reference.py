@@ -15,7 +15,8 @@ import torch
 from portbench import run
 from portbench.reference import render as ref
 from portbench.reference.scene import read_scene
-from portbench.tests.test_portbench_harness import TINY, session_numbers
+from portbench.tests.test_portbench_harness import (CELLS_AND_STANDBY,
+                                                    session_numbers)
 
 ROOT = run.ROOT
 
@@ -67,7 +68,7 @@ def test_closest_hit_rules():
     assert torch.equal(t, t2) and torch.equal(i, i2)
 
 
-@pytest.mark.parametrize("cell", sorted(TINY))
+@pytest.mark.parametrize("cell", sorted(CELLS_AND_STANDBY))
 def test_control_fails_the_check(cell):
     """The reference in bfloat16 in the program's place reads beyond the
     cell's limits (at the cell's own size on the card, see PERF.md)."""

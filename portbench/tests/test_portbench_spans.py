@@ -120,7 +120,7 @@ def test_every_new_metric_is_in_the_benchmark():
     names = {m["name"]: m for m in run.load_bench()["per_layer"]}
     for metric in IDLE:
         assert names[metric]["source"] == "device_trace"
-        assert names[metric]["workloads"] == ["thai2_1024.render16"]
+        assert "thai2_1024.render16" in names[metric]["workloads"]
     for metric in SETUP:
         assert names[metric]["source"] == "host_clock"
         assert names[metric]["moves"] == "setup_s"
