@@ -23,11 +23,19 @@ raytracer_lib/src/raytracer/mod.rs:198-261), with every quirk kept:
 
 Dot products are written out per component, (x + y) + z, the
 arithmetic of the kernels' epilogues.
+
+The float gathers (vertices by hit triangle, diffuse colour by geometry,
+texels by texel) go through `ops.cuda_gather.gather_rows` when autograd
+will need their backward (grad mode on and the table requires grad), so
+that their backward is the hand-written kernel; otherwise they index as
+plain PyTorch, the same values either way.
 """
 
 from __future__ import annotations
 
 import torch
+
+from raytracer_tpu_torch.ops.cuda_gather import gather_rows
 
 
 def pow32(x):
@@ -54,6 +62,11 @@ def _dot3(a, b):
             + a[..., 2] * b[..., 2])
 
 
+def _tracked(table):
+    """Whether autograd will need the backward of a gather from `table`."""
+    return torch.is_grad_enabled() and table.requires_grad
+
+
 def texel(scene, tex_id, u, v):
     """Nearest-neighbour texel (N, 3) at barycentric (u, v) of texture
     `tex_id` (N,) (clamped to 0 where negative), coordinates clamped into
@@ -66,12 +79,19 @@ def texel(scene, tex_id, u, v):
                       w - 1)
     y = torch.minimum(torch.maximum((v * h.float()).to(torch.int32), zero),
                       h - 1)
-    return scene.tex_atlas[safe, y.long(), x.long()]
+    atlas = scene.tex_atlas
+    if _tracked(atlas):             # (T, H, W, 3) as (T * H * W, 3) rows
+        _, th, tw, _ = atlas.shape
+        return gather_rows(atlas.reshape(-1, 3),
+                           (safe * th + y.long()) * tw + x.long())
+    return atlas[safe, y.long(), x.long()]
 
 
 def geometric_normal(tri_verts, tri_idx):
     """Face normal per hit (mod.rs:198-205). tri_idx: (R,) int."""
-    tv = tri_verts[tri_idx.long()]                   # (R, 3, 3)
+    idx = tri_idx.long()
+    tv = (gather_rows(tri_verts, idx) if _tracked(tri_verts)
+          else tri_verts[idx])                      # (R, 3, 3)
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
     n = torch.linalg.cross(e1, e2, dim=-1)
@@ -83,7 +103,8 @@ def sample_diffuse(scene, tri_idx, u, v):
     """Material diffuse per hit: flat colour or nearest-neighbour texel at
     the barycentric (u, v) (mod.rs:242-248).  Returns (R, 3)."""
     geom = scene.tri_geom[tri_idx.long()].long()
-    rgb = scene.mat_diffuse_rgb[geom]
+    mat = scene.mat_diffuse_rgb
+    rgb = gather_rows(mat, geom) if _tracked(mat) else mat[geom]
     tex_id = scene.mat_tex_id[geom]
     return torch.where((tex_id >= 0)[:, None], texel(scene, tex_id, u, v),
                        rgb)

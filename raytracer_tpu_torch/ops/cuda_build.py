@@ -34,7 +34,7 @@ from raytracer_tpu_torch.utils.profiling import count, span
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_ROOT, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "torch_kernels")
-SOURCES = ("cuda_bvh", "cuda_cluster")
+SOURCES = ("cuda_bvh", "cuda_cluster", "cuda_gather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
 

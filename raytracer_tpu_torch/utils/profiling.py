@@ -14,8 +14,10 @@ device.
 
 A counter (`count(name, n)`) is a plain integer add, always on:
 `kernel_builds` (nvcc runs), `kernel_loads` (libraries bound),
-`row_block_builds` (`RayTracer._row_block` cache misses) and
-`readback_bytes` (device-to-host copies of the film's getters).
+`row_block_builds` (`RayTracer._row_block` cache misses),
+`readback_bytes` (device-to-host copies of the film's getters) and
+`gather_rows.shared` / `gather_rows.global` (launches of the gather
+backward's two kernels, ops/cuda_gather.py).
 `counters()` lists them with the kernel wrappers' own launch counts.
 
     from raytracer_tpu_torch.utils.profiling import span, trace
@@ -39,7 +41,8 @@ from raytracer_tpu_torch.utils.timing import BenchMark
 
 SPANS = BenchMark()
 _counts = dict.fromkeys(("kernel_builds", "kernel_loads",
-                         "row_block_builds", "readback_bytes"), 0)
+                         "row_block_builds", "readback_bytes",
+                         "gather_rows.shared", "gather_rows.global"), 0)
 _counts_lock = threading.Lock()
 _recording = torch._C._autograd._profiler_enabled
 
