@@ -62,6 +62,7 @@ Phases (any failure raises and exits non-zero):
       (loss falling, seconds per step, peak memory, no kernel launch);
       the first step's gradients at 64x64 on the card against the CPU
       (the CPU tests' tolerance); the fused path under autograd raises;
+      the gather backward's launches (`gather_rows.launches`: 6 a step);
    g. the viewer over create_inline_raytracer (1024x768) on a free
       local port: 3 frames, /frame.png decodes, /stats, /key/w clears
       the film, then shut down;
@@ -90,7 +91,14 @@ Phases (any failure raises and exits non-zero):
       and a profile of one step; phase f's inverse step over a BVH built
       from the start's vertices beside brute force's (the first losses
       within 1e-4); the dry run (`parallel/dryrun.py --ranks 1`) over
-      NCCL, training over the BVH;
+      NCCL, training over the BVH.  Each step's launches of the gather
+      backward (ops/cuda_gather.py) are counted, and the inputs of one
+      thai2 step and of one inverse step are kept: each call is run again
+      through
+      the kernel and held per row against the float64 plain sum, within
+      `sum_depth` x 2^-24 x the row's sum of |values|, and timed beside
+      the library's index_put_ (PyTorch's backward of `table[idx]`) and
+      index_add_ on the same inputs;
 5. one JSON line describing each ported kernel;
 6. the last line: {"ok": true, "device": {...}}.
 
@@ -208,12 +216,86 @@ def kernel_wrappers():
             "cluster_closest": cuda_cluster.cluster_closest}
 
 
+GATHER_KEY = "gather_rows.launches"
+_gather_base = {}
+
+
 def set_counts(timing):
     """Every kernel's launch count to 0; with `timing`, each launch also
-    records CUDA events (else none)."""
+    records CUDA events (else none).  The gather backward's counters are
+    the program's own, so `gather_counts` reads them from here on."""
+    from raytracer_tpu_torch.utils import profiling
     for w in kernel_wrappers().values():
         w.launches = 0
         w.events = [] if timing else None
+    _gather_base[GATHER_KEY] = profiling.counters()[GATHER_KEY]
+
+
+def gather_counts():
+    """Launches of the gather backward's kernel since the last
+    `set_counts`."""
+    from raytracer_tpu_torch.utils import profiling
+    return profiling.counters()[GATHER_KEY] - _gather_base[GATHER_KEY]
+
+
+def gather_capture(fn, limit):
+    """fn(), with the inputs (grad, idx, n) of its first `limit` calls of
+    the gather backward kept (clones, on the card)."""
+    from raytracer_tpu_torch.ops import cuda_gather
+    kept, backward = [], cuda_gather.rows_backward
+
+    def keep(grad, idx, n):
+        if len(kept) < limit:
+            kept.append((grad.clone(), idx.clone(), n))
+        return backward(grad, idx, n)
+    cuda_gather.rows_backward = keep
+    try:
+        out = fn()
+    finally:
+        cuda_gather.rows_backward = backward
+    return out, kept
+
+
+def check_gather(what, kept):
+    """Each kept call of the gather backward run again through the kernel
+    and held per row against the float64 plain sum, within
+    `cuda_gather.sum_depth` x 2^-24 x the row's sum of |values| (Higham's
+    bound for a float32 sum that deep in any order); its time beside the
+    library's on the same inputs: index_put_ with accumulate (PyTorch's
+    backward of `table[idx]`) and index_add_; and the bound by bytes,
+    M x (4 C + 8) B at HBM3's rate.  Returns one record a call."""
+    import torch
+    from raytracer_tpu_torch.ops import cuda_gather
+    out = []
+    for grad, idx, n in kept:
+        m, c = grad.shape
+        got = cuda_gather.rows_backward(grad, idx, n).cpu().double()
+        g64, i64 = grad.cpu().double(), idx.cpu()
+        exact = cuda_gather.rows_backward_plain(g64, i64, n)
+        scale = cuda_gather.rows_backward_plain(g64.abs(), i64, n)
+        k = torch.bincount(i64, minlength=n)
+        depth = cuda_gather.sum_depth(k, m)
+        bound_err = depth[:, None] * 2.0 ** -24 * scale
+        err = (got - exact).abs()
+        over = float((err / bound_err.clamp(min=1e-300)).max())
+        ms = cuda_ms(lambda: cuda_gather.rows_backward(grad, idx, n), 10)
+        zeros = lambda: torch.zeros((n, c), device=grad.device)  # noqa: E731
+        add_ms = cuda_ms(lambda: zeros().index_add_(0, idx, grad), 3)
+        put_ms = cuda_ms(lambda: zeros().index_put_((idx,), grad,
+                                                    accumulate=True), 1)
+        bound_ms = m * (4 * c + 8) / H100_BYTES_PER_S * 1e3
+        r = dict(rows=m, table=(n, c),
+                 hot_share=float(k.max()) / max(m, 1), ms=ms,
+                 bound_ms=bound_ms, index_put_ms=put_ms, index_add_ms=add_ms,
+                 max_abs_err=float(err.max()), err_over_bound=over)
+        log(f"{what} gather backward ({n}, {c}) <- {m} rows "
+            f"(hot row {100 * r['hot_share']:.1f} %): {ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms by bytes; index_put_ {put_ms:.3f} ms, "
+            f"index_add_ {add_ms:.4f} ms); max |err| "
+            f"{r['max_abs_err']:.3g}, error / depth bound {over:.3g}")
+        assert over <= 1.0, (what, r)
+        out.append(r)
+    return out
 
 
 def read_counts():
@@ -1198,13 +1280,18 @@ def phase_inverse(rec):
     losses, secs, _ = inverse_run(dev, 1024, 3)
     peak = torch.cuda.max_memory_allocated()
     counts, _ = read_counts()
+    gathers = gather_counts()
     log(f"inverse rendering ico3_tex 1024x1024, 1 spp, 2 bounces, brute "
         f"force: losses {losses}, seconds per step {secs}, peak {peak} B "
-        f"allocated; kernel launches {counts}")
+        f"allocated; kernel launches {counts}; gather backward launches "
+        f"in 3 steps {gathers}")
     assert all(np.isfinite(losses)) and losses[0] > 0
     assert losses[1] < losses[0] and losses[2] < losses[1], losses
     assert sum(counts.values()) == 0, counts
-    out = dict(losses=losses, step_seconds=secs, peak_bytes=peak)
+    # two tables (vertices, colours) at each of 3 levels a step
+    assert gathers == 18, gathers
+    out = dict(losses=losses, step_seconds=secs, peak_bytes=peak,
+               gather_launches=gathers)
     (lk,), _, gk = inverse_run(dev, 64, 1)
     (lc,), _, gc = inverse_run(torch.device("cpu"), 64, 1)
     errs = {}
@@ -1568,6 +1655,7 @@ def phase_grads(rec, brute_losses):
                 sa, cam, px, py, NumpyDraws(31, dev), 64, 64, isect,
                 target.to(dev), recursions=2))
         counts, _ = read_counts()
+        gathers = gather_counts()
         errs = {k: grad_err(grads["card"][k], grads["cpu"][k])
                 for k in grads["cpu"]}
         log(f"i(a) gradients over {accel} (ico3_tex 64x64, 2 bounces), "
@@ -1575,14 +1663,17 @@ def phase_grads(rec, brute_losses):
             f"largest) {errs}; radiance under autograd equal to no_grad bit "
             f"for bit: {bitwise}; primary hit rays whose recomputed t "
             f"differs from the kernel's: {differ} of {hits}; launches in "
-            f"the card's step {counts}")
+            f"the card's step {counts}, gather backward {gathers}")
         assert bitwise, f"{accel}: the forward under autograd differs"
         assert max(errs.values()) <= 1.0, errs
         assert all(np.isfinite(g).all() for g in grads["card"].values())
         assert counts == {**only, kernel: 6}, counts
+        # vertices, colours and the 640x640 atlas at each of 3 levels
+        assert gathers == 9, gathers
         out[f"grad64_{accel}"] = dict(err_over_tol=errs, bitwise=bitwise,
                                       t_differ=differ, hits=hits,
-                                      launches=counts)
+                                      launches=counts,
+                                      gather_launches=gathers)
 
     # (b) fwd+bwd of thai2 at 1024x1024 over the BVH
     n = 1024
@@ -1612,7 +1703,10 @@ def phase_grads(rec, brute_losses):
         set_counts(timing=False)
         (gs, gc), ms = timed(step)
         counts, _ = read_counts()
+        gathers = gather_counts()
         assert counts == {**only, "bvh_closest": 6}, counts
+        # 20,049 vertices, 2 colours and the 1-texel atlas; 3 levels
+        assert gathers == 9, gathers
         secs.append(ms / 1e3)
     peak = torch.cuda.max_memory_allocated()
     grads = leaf_grads((gs, gc))
@@ -1622,34 +1716,42 @@ def phase_grads(rec, brute_losses):
     log(f"i(b) fwd+bwd thai2 1024x1024, 1 spp, 2 bounces, BVH tpl 70: "
         f"seconds a step {secs} (median {med:.4f}), "
         f"{n * n / med / 1e6:.4f} fwd+bwd primary Mrays/s, peak {peak} B "
-        f"allocated, bvh_closest launches a step {counts['bvh_closest']}; "
+        f"allocated, bvh_closest launches a step {counts['bvh_closest']}, "
+        f"gather backward {gathers}; "
         f"forward only (no_grad) {fwd} s; primary hit rays whose "
         f"recomputed t differs from the kernel's: {differ} of {hits}")
     out["fwd_bwd"] = dict(step_seconds=secs, median_s=med,
                           mrays=n * n / med / 1e6, peak_bytes=peak,
-                          launches=counts, forward_seconds=fwd,
-                          t_differ=differ, hits=hits)
+                          launches=counts, gather_launches=gathers,
+                          forward_seconds=fwd, t_differ=differ, hits=hits)
     phase_profile("fwd+bwd step (thai2 1024x1024, BVH)", step, rec,
                   by_shape="_index_put_impl_")
-    del sa, cam, px, py, bvh, target, rad, gs, gc, grads
+    _, kept = gather_capture(step, 9)
+    out["gather_fwd_bwd"] = check_gather("i(b) thai2 step", kept)
+    del sa, cam, px, py, bvh, target, rad, gs, gc, grads, kept
 
     # (c) the inverse step over a BVH beside brute force's
     set_counts(timing=False)
     torch.cuda.reset_peak_memory_stats()
-    losses, isecs, _ = inverse_run(cuda, 1024, 3, accel="bvh")
+    (losses, isecs, _), kept = gather_capture(
+        lambda: inverse_run(cuda, 1024, 3, accel="bvh"), 6)
     peak = torch.cuda.max_memory_allocated()
     counts, _ = read_counts()
+    gathers = gather_counts()
     log(f"i(c) inverse rendering ico3_tex 1024x1024 over the BVH: losses "
         f"{losses} (brute force, phase f: {brute_losses}), seconds per "
         f"step {isecs}, peak {peak} B allocated; launches in 3 steps "
-        f"{counts}")
+        f"{counts}, gather backward {gathers}")
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
     assert abs(losses[0] - brute_losses[0]) <= 1e-4 * brute_losses[0], \
         (losses[0], brute_losses[0])
     assert counts == {**only, "bvh_closest": 18}, counts
+    assert gathers == 18, gathers
     out["inverse_bvh"] = dict(losses=losses, brute_losses=brute_losses,
                               step_seconds=isecs, peak_bytes=peak,
-                              launches=counts)
+                              launches=counts, gather_launches=gathers)
+    out["gather_inverse"] = check_gather("i(c) inverse step (first)", kept)
+    del kept
 
     # (d) the dry run, one rank over NCCL
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -1848,6 +1950,24 @@ def main(argv):
         launches_grad64_step=grads["grad64_bvh"]["launches"]["bvh_closest"])
     kernels[3].update(launches_grad64_step=grads["grad64_cluster"][
         "launches"]["cluster_closest"])
+    calls = grads["gather_inverse"] + grads["gather_fwd_bwd"]
+    kernels.append({
+        "name": "indexing_backward_rows", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/cuda_gather.cu",
+        "replaces": None,
+        "shape": "an ico3_tex 1024x1024 inverse step over the BVH (6 "
+                 "calls), then a thai2 1024x1024 fwd+bwd step (9 calls)",
+        "launches_inverse_step": rec["inverse"]["gather_launches"] / 3,
+        "launches_fwd_bwd_step": grads["fwd_bwd"]["gather_launches"],
+        "launches_grad64_step": grads["grad64_bvh"]["gather_launches"],
+        "rows": [r["rows"] for r in calls],
+        "tables": [r["table"] for r in calls],
+        "ms": [r["ms"] for r in calls],
+        "bound_ms": [r["bound_ms"] for r in calls], "bound_by": "bytes",
+        "library_ms": {"index_put_": [r["index_put_ms"] for r in calls],
+                       "index_add_": [r["index_add_ms"] for r in calls]},
+        "max_abs_err": max(r["max_abs_err"] for r in calls),
+        "err_over_depth_bound": max(r["err_over_bound"] for r in calls)})
     line = json.dumps({"kernels": kernels})
     log(line)
     rec["kernels"] = kernels

@@ -25,10 +25,10 @@ Dot products are written out per component, (x + y) + z, the
 arithmetic of the kernels' epilogues.
 
 The float gathers (vertices by hit triangle, diffuse colour by geometry,
-texels by texel) go through `ops.cuda_gather.gather_rows` when autograd
-will need their backward (grad mode on and the table requires grad), so
-that their backward is the hand-written kernel; otherwise they index as
-plain PyTorch, the same values either way.
+texels by texel) go through `ops.cuda_gather.gather_rows`, `table[idx]`
+whose backward is the hand-written kernel; the texel gather does so only
+when autograd will need its backward (grad mode on and the atlas
+requires grad), since it then indexes the atlas as flat rows.
 """
 
 from __future__ import annotations
@@ -62,11 +62,6 @@ def _dot3(a, b):
             + a[..., 2] * b[..., 2])
 
 
-def _tracked(table):
-    """Whether autograd will need the backward of a gather from `table`."""
-    return torch.is_grad_enabled() and table.requires_grad
-
-
 def texel(scene, tex_id, u, v):
     """Nearest-neighbour texel (N, 3) at barycentric (u, v) of texture
     `tex_id` (N,) (clamped to 0 where negative), coordinates clamped into
@@ -80,7 +75,8 @@ def texel(scene, tex_id, u, v):
     y = torch.minimum(torch.maximum((v * h.float()).to(torch.int32), zero),
                       h - 1)
     atlas = scene.tex_atlas
-    if _tracked(atlas):             # (T, H, W, 3) as (T * H * W, 3) rows
+    if torch.is_grad_enabled() and atlas.requires_grad:
+        # (T, H, W, 3) as (T * H * W, 3) rows
         _, th, tw, _ = atlas.shape
         return gather_rows(atlas.reshape(-1, 3),
                            (safe * th + y.long()) * tw + x.long())
@@ -89,9 +85,7 @@ def texel(scene, tex_id, u, v):
 
 def geometric_normal(tri_verts, tri_idx):
     """Face normal per hit (mod.rs:198-205). tri_idx: (R,) int."""
-    idx = tri_idx.long()
-    tv = (gather_rows(tri_verts, idx) if _tracked(tri_verts)
-          else tri_verts[idx])                      # (R, 3, 3)
+    tv = gather_rows(tri_verts, tri_idx.long())        # (R, 3, 3)
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
     n = torch.linalg.cross(e1, e2, dim=-1)
@@ -103,8 +97,7 @@ def sample_diffuse(scene, tri_idx, u, v):
     """Material diffuse per hit: flat colour or nearest-neighbour texel at
     the barycentric (u, v) (mod.rs:242-248).  Returns (R, 3)."""
     geom = scene.tri_geom[tri_idx.long()].long()
-    mat = scene.mat_diffuse_rgb
-    rgb = gather_rows(mat, geom) if _tracked(mat) else mat[geom]
+    rgb = gather_rows(scene.mat_diffuse_rgb, geom)
     tex_id = scene.mat_tex_id[geom]
     return torch.where((tex_id >= 0)[:, None], texel(scene, tex_id, u, v),
                        rgb)

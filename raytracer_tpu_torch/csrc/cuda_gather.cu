@@ -1,4 +1,4 @@
-// Hand-written CUDA kernels (sm_90a) for the backward of a row gather of
+// A hand-written CUDA kernel (sm_90a) for the backward of a row gather of
 // the PyTorch port (ops/cuda_gather.py `gather_rows`):
 //
 //   out[idx[i], c] += grad[i, c]   for i < M, c < C, out (N, C) float32
@@ -25,27 +25,22 @@
 // consecutive rays; `__match_any_sync` groups the lanes that hold the
 // same row, and each group sums its lanes' values in a tree of shuffles
 // (at most 5 rounds; the schedule depends on the groups only, so it is
-// computed once for all C columns); one leader a group adds the sum.  A
-// row that all 32 lanes hold costs one add a warp, not 32.  Two paths,
-// picked by the wrapper from the table's size:
-// - indexing_backward_rows_shared (N x C x 4 bytes within the wrapper's
-//   budget): a persistent grid, each block a private copy of the table
-//   in shared memory, cleared, accumulated by the warps' leaders with
-//   shared-memory atomics, then added to the output with one global
-//   atomicAdd per nonzero element;
-// - indexing_backward_rows_global (larger tables: thai2's 20,049 x 9
-//   vertices, a texture atlas): the same warp sums, added straight into
-//   the output with global atomics.
-// Exact zeros are not added (adding +0 leaves every float as it is but
-// -0, and the zeroed output never holds -0): missed rays gather row 0
-// with a zero gradient.  Float atomics add in an order that changes from
-// run to run; the tree of a warp, a block's partials and the blocks'
-// adds make a sum of depth 5 + (a block's warp-sums of a row) + blocks,
-// far shallower than one thread's walk over a row's duplicates.
-// Built with --fmad=false like every kernel of the port (no contraction
-// is possible in a sum, so it changes nothing here).  Names start with
-// `indexing_backward`, PyTorch's prefix for this backward, so that a
-// profile reads the index backward of every gather under one name.
+// computed once for all C columns); one leader a group adds the sum to
+// the output with a global atomicAdd.  A row that all 32 lanes hold
+// costs one atomic a warp, not 32.  Exact zeros are not added (adding +0
+// leaves every float as it is but -0, and the zeroed output never holds
+// -0): missed rays gather row 0 with a zero gradient, so the hottest row
+// of the shading's tables mostly adds nothing.  A block's private copy
+// of the table in shared memory gains nothing on the inverse step's
+// gradients, whose hot rows are those zeros (PERF.md); it pays only
+// where a hot row's values are nonzero.  Float atomics add in an order
+// that changes from run to run; a row's sum is at most 5 + (the warps
+// that hold the row) additions deep, far shallower than one thread's
+// walk over its duplicates.  Built with --fmad=false like every kernel of the port (no
+// contraction is possible in a sum, so it changes nothing here).  The
+// name starts with `indexing_backward`, PyTorch's prefix for this
+// backward, so that a profile reads the index backward of every gather
+// under one name.
 
 #include <cuda_runtime.h>
 
@@ -53,7 +48,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_ROUNDS = 5;            // log2(32): a group of 32 lanes
-constexpr int MAX_SHARED = 232448;       // 227 KB, a block's most
+constexpr int THREADS = 512;             // 16 warps a block
 
 struct RowsArgs {
   const float* grad;        // (M, C) row-major
@@ -64,11 +59,10 @@ struct RowsArgs {
   float* out;               // (N, C) float32, zeroed by the caller
 };
 
-// One warp's 32 rays starting at `base` into `acc` ((N, C) floats in
-// shared or global memory).  Every lane of the warp calls it with the
-// same `base`.
+// One warp's 32 rays starting at `base` into the output.  Every lane of
+// the warp calls it with the same `base`.
 __device__ __forceinline__ void warp_rows(const RowsArgs& a, long long base,
-                                          int lane, float* acc) {
+                                          int lane) {
   const long long i = base + lane;
   int row = -1;
   if (i < a.M) {
@@ -106,72 +100,32 @@ __device__ __forceinline__ void warp_rows(const RowsArgs& a, long long base,
       }
     }
     if (leader && x != 0.0f)
-      atomicAdd(acc + static_cast<long long>(row) * a.C + c, x);
+      atomicAdd(a.out + static_cast<long long>(row) * a.C + c, x);
   }
 }
 
 }  // namespace
 
 // Named at namespace scope, for the profile (see the top of the file).
-__global__ void indexing_backward_rows_shared(RowsArgs a) {
-  extern __shared__ float acc[];
-  const int nc = a.N * a.C;
-  for (int k = threadIdx.x; k < nc; k += blockDim.x) acc[k] = 0.0f;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) *
-                          (blockDim.x >> 5);
-  for (long long w = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-                     (threadIdx.x >> 5);
-       w * 32 < a.M; w += warps)
-    warp_rows(a, w * 32, lane, acc);
-  __syncthreads();
-  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
-    const float v = acc[k];
-    if (v != 0.0f) atomicAdd(a.out + k, v);
-  }
+// One warp for each 32 rays.
+__global__ void indexing_backward_rows(RowsArgs a) {
+  const long long w = static_cast<long long>(blockIdx.x) * (THREADS / 32) +
+                      (threadIdx.x >> 5);
+  if (w * 32 < a.M) warp_rows(a, w * 32, threadIdx.x & 31);
 }
 
-__global__ void indexing_backward_rows_global(RowsArgs a) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) *
-                          (blockDim.x >> 5);
-  for (long long w = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-                     (threadIdx.x >> 5);
-       w * 32 < a.M; w += warps)
-    warp_rows(a, w * 32, lane, a.out);
-}
-
-// out (N, C) must be zeroed.  shared: 1 for the shared-memory path, 0
-// for the global one; blocks, threads: the grid (threads a multiple of
-// 32, at most 1024).  Returns a CUDA error code (1, invalid value, for
-// a shape the kernels do not take).
+// out (N, C) must be zeroed.  Returns a CUDA error code (1, invalid
+// value, for a shape the kernel does not take).
 extern "C" int rtx_gather_backward(const float* grad, const long long* idx,
                                    long long M, int N, int C, float* out,
-                                   int shared, int blocks, int threads,
                                    void* stream) {
-  if (N < 0 || C < 1 || M < 0 || blocks < 1 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+  if (N < 0 || C < 1 || M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
+  const long long blocks = (M + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const RowsArgs a{grad, idx, M, N, C, out};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shared) {
-    indexing_backward_rows_global<<<blocks, threads, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const long long bytes = 4LL * N * C;
-  if (bytes > MAX_SHARED) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(bytes);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        indexing_backward_rows_shared,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();   // not left behind for the next launch's check
-      return static_cast<int>(err);
-    }
-  }
-  indexing_backward_rows_shared<<<blocks, threads, smem, s>>>(a);
+  indexing_backward_rows<<<static_cast<unsigned>(blocks), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,10 +14,8 @@ Three tiers, as beside every kernel of the port:
 - the plain version, `rows_backward_plain`: a zeroed table and
   `index_add_`, for CPU tensors only;
 - the kernel, `rows_backward`: for CUDA tensors it launches
-  ``indexing_backward_rows_shared`` when the table's N x C x 4 bytes fit
-  `SHARED_BYTES` (`shared_path`), else ``indexing_backward_rows_global``,
-  or raises; it never falls back to a library scatter.  Each launch
-  counts `gather_rows.shared` or `gather_rows.global`
+  ``indexing_backward_rows``, or raises; it never falls back to a
+  library scatter.  Each launch counts `gather_rows.launches`
   (utils/profiling.py) and runs in the span `rtx.gather_backward`;
 - the tests (tests/test_torch_gather.py).
 The library is built with nvcc for sm_90a and loaded through ctypes at
@@ -37,16 +35,10 @@ from raytracer_tpu_torch.ops.cuda_build import (I, L, P, check_cuda,
                                                 cuda_stream, ptr, raise_on)
 from raytracer_tpu_torch.utils.profiling import count, span
 
-# A block's private copy of the table: at most 96 KiB, so that two
-# blocks of the persistent grid fit in one SM's 228 KiB.
-SHARED_BYTES = 96 * 1024
-THREADS = 512
-BLOCKS_PER_SM = 2
-
 
 def _setup(lib):
     lib.rtx_gather_backward.restype = I
-    lib.rtx_gather_backward.argtypes = [P, P, L, I, I, P, I, I, I, P]
+    lib.rtx_gather_backward.argtypes = [P, P, L, I, I, P, P]
 
 
 def _load():
@@ -55,19 +47,14 @@ def _load():
     return cuda_build.load("cuda_gather", _setup)
 
 
-def shared_path(n: int, c: int) -> bool:
-    """Whether an (n, c) float32 table takes the shared-memory kernel:
-    its n x c x 4 bytes fit a block's budget, `SHARED_BYTES`."""
-    return n * c * 4 <= SHARED_BYTES
-
-
-def launch_blocks(m: int, sms: int, shared: bool) -> int:
-    """Blocks of `THREADS` threads for m rows: on the shared path a
-    persistent grid of `BLOCKS_PER_SM` blocks a streaming multiprocessor
-    (fewer where m is small), on the global path one warp for every 32
-    rows."""
-    need = max(1, -(-m // THREADS))
-    return min(need, BLOCKS_PER_SM * sms) if shared else need
+def sum_depth(k, m: int):
+    """The most additions that each row's sum passes through in the
+    kernel, for k (N,) entries a row among m: the warp's tree (at most 5
+    rounds), then the leaders' adds into the output, one a warp at most
+    and no more than the row's entries.  A float32 sum this deep errs by
+    at most depth x 2^-24 x the sum of |values| (Higham), whatever the
+    order."""
+    return 5 + k.clamp(max=-(-m // 32))
 
 
 def rows_backward_plain(grad, idx, n: int):
@@ -96,18 +83,13 @@ def rows_backward(grad, idx, n: int):
         raise ValueError("gather_rows backward: grad and idx on "
                          f"{grad.device} and {idx.device}")
     m, c = grad.shape
-    dev = grad.device
-    shared = shared_path(n, c)
-    path = "shared" if shared else "global"
-    out = torch.zeros((n, c), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with span("rtx.gather_backward", path=path, rows=m):
+    out = torch.zeros((n, c), dtype=torch.float32, device=grad.device)
+    with span("rtx.gather_backward", rows=m):
         code = _load().rtx_gather_backward(
-            ptr(grad), ptr(idx), m, n, c, ptr(out), int(shared),
-            launch_blocks(m, sms, shared), THREADS, cuda_stream(dev))
+            ptr(grad), ptr(idx), m, n, c, ptr(out), cuda_stream(grad.device))
         raise_on(code, "gather_rows backward",
-                 f"a shape the kernels do not take: ({n}, {c}) rows")
-        count(f"gather_rows.{path}")
+                 f"a shape the kernel does not take: ({n}, {c}) rows")
+        count("gather_rows.launches")
     return out
 
 

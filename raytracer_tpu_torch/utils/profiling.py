@@ -16,8 +16,8 @@ A counter (`count(name, n)`) is a plain integer add, always on:
 `kernel_builds` (nvcc runs), `kernel_loads` (libraries bound),
 `row_block_builds` (`RayTracer._row_block` cache misses),
 `readback_bytes` (device-to-host copies of the film's getters) and
-`gather_rows.shared` / `gather_rows.global` (launches of the gather
-backward's two kernels, ops/cuda_gather.py).
+`gather_rows.launches` (launches of the gather backward's kernel,
+ops/cuda_gather.py).
 `counters()` lists them with the kernel wrappers' own launch counts.
 
     from raytracer_tpu_torch.utils.profiling import span, trace
@@ -42,7 +42,7 @@ from raytracer_tpu_torch.utils.timing import BenchMark
 SPANS = BenchMark()
 _counts = dict.fromkeys(("kernel_builds", "kernel_loads",
                          "row_block_builds", "readback_bytes",
-                         "gather_rows.shared", "gather_rows.global"), 0)
+                         "gather_rows.launches"), 0)
 _counts_lock = threading.Lock()
 _recording = torch._C._autograd._profiler_enabled
 

@@ -1,9 +1,8 @@
 """The row gather of the differentiable shading (ops/cuda_gather.py):
 its forward is `table[idx]` bit for bit, its plain backward autograd's
-gradient of `table[idx]`, its kernel picks its path by the table's
-bytes, and the shading's gathers enter it only when autograd needs their
-backward.  The tests marked `cuda` hold both kernels against the plain
-version on the card and skip without one.
+gradient of `table[idx]`, and the shading's gathers run its backward
+only when autograd needs it.  The tests marked `cuda` hold the kernel
+against the plain version on the card and skip without one.
 
 This file imports neither JAX nor the reference package, so it runs on
 a machine without them; the repo's conftest imports JAX, hence on the
@@ -12,7 +11,6 @@ card:
     python -m pytest --noconftest -q tests/test_torch_gather.py
 """
 
-import math
 from types import SimpleNamespace
 
 import pytest
@@ -20,12 +18,10 @@ import torch
 
 from raytracer_tpu_torch.core import shade
 from raytracer_tpu_torch.ops import cuda_gather
-from raytracer_tpu_torch.ops.cuda_gather import (BLOCKS_PER_SM,
-                                                 SHARED_BYTES, THREADS,
-                                                 gather_rows, launch_blocks,
+from raytracer_tpu_torch.ops.cuda_gather import (gather_rows,
                                                  rows_backward,
                                                  rows_backward_plain,
-                                                 shared_path)
+                                                 sum_depth)
 from raytracer_tpu_torch.utils import profiling
 
 # the tables of the differentiable shading: the triangles' vertices of
@@ -88,22 +84,45 @@ def test_plain_backward_is_autograds_gradient(shape, kind):
         assert (grads[0] != 0).all()
 
 
-def test_path_is_picked_by_the_tables_bytes():
-    """Shared up to SHARED_BYTES of float32 table, global beyond."""
-    edge = SHARED_BYTES // (4 * 9)
-    assert shared_path(edge, 9) and not shared_path(edge + 1, 9)
-    assert shared_path(SHARED_BYTES // 4, 1)
-    assert not shared_path(SHARED_BYTES // 4 + 1, 1)
-    assert shared_path(608, 9) and shared_path(5, 3)       # ico3_tex
-    assert not shared_path(20049, 9)                       # thai2
-    assert not shared_path(640 * 640, 3)                   # its atlas
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_takes_a_strided_gradient(shape):
+    """Autograd may hand the backward a gradient that is not contiguous:
+    here y is used transposed, so its gradient is a transposed view.  It
+    is read as rows all the same: the plain version's gradient equals
+    indexing's, each row's sum within the bound of the test above."""
+    gen = torch.Generator().manual_seed(7)
+    table = torch.randn(shape, generator=gen)
+    idx = _indices(shape[0], 500, "hot", gen)
+    w = torch.randn((500, *shape[1:]), generator=gen).transpose(
+        0, -1).contiguous()                 # the shape of y transposed
+    seen, backward = [], cuda_gather._GatherRows.backward
+
+    def spy(ctx, grad):
+        seen.append(grad.is_contiguous())
+        return backward(ctx, grad)
+    grads = []
+    for gather in (gather_rows, lambda t, i: t[i]):
+        leaf = table.clone().requires_grad_(True)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cuda_gather._GatherRows, "backward",
+                       staticmethod(spy))
+            (gather(leaf, idx).transpose(0, -1) * w).sum().backward()
+        grads.append(leaf.grad)
+    assert seen == [False]
+    k = torch.bincount(idx, minlength=shape[0]).reshape(
+        (-1,) + (1,) * (len(shape) - 1))
+    scale = torch.zeros_like(table).index_add_(
+        0, idx, w.transpose(0, -1).abs())
+    assert ((grads[0] - grads[1]).abs() <= 2 * k * U * scale).all()
 
 
-def test_launch_blocks():
-    assert launch_blocks(0, 132, True) == 1
-    assert launch_blocks(THREADS + 1, 132, True) == 2
-    assert launch_blocks(2 ** 21, 132, True) == BLOCKS_PER_SM * 132
-    assert launch_blocks(2 ** 21, 132, False) == 2 ** 21 // THREADS
+def test_sum_depth_bounds_each_row_by_its_own_entries():
+    """A row of k entries is summed at most 5 + k deep, and never deeper
+    than the warps of the call allow, however many entries it has."""
+    m = 2 ** 21
+    k = torch.tensor([0, 1, 50, 2 ** 20])
+    assert sum_depth(k, m).tolist() == [5, 6, 55, 5 + m // 32]
+    assert sum_depth(k, 33).tolist() == [5, 6, 7, 7]
 
 
 def _scene(requires_grad):
@@ -141,19 +160,16 @@ def _recording(monkeypatch):
     return calls
 
 
-def test_shading_gathers_bypass_gather_rows_without_grad(monkeypatch):
-    """Under no_grad, and for tables that do not require grad, the
-    gathers index as plain PyTorch: gather_rows is never entered and no
-    launch is counted."""
-    calls = _recording(monkeypatch)
+def test_shading_gathers_bypass_gather_rows_without_grad():
+    """Under no_grad, and for tables that do not require grad, autograd
+    records no gather, so its backward never runs: no launch is
+    counted."""
     before = profiling.counters()
     with torch.no_grad():
-        _shade_gathers(_scene(True))
-    _shade_gathers(_scene(False))
-    assert calls == []
-    after = profiling.counters()
-    for key in ("gather_rows.shared", "gather_rows.global"):
-        assert after[key] == before[key] == 0
+        assert not _shade_gathers(_scene(True)).requires_grad
+    assert not _shade_gathers(_scene(False)).requires_grad
+    key = "gather_rows.launches"
+    assert profiling.counters()[key] == before[key]
 
 
 def test_shading_gathers_take_gather_rows_under_grad(monkeypatch):
@@ -173,8 +189,8 @@ def test_shading_gathers_take_gather_rows_under_grad(monkeypatch):
 
 def test_backward_checks_its_operands():
     with pytest.raises(ValueError):
-        rows_backward(torch.zeros((4, 3)), torch.zeros((5,), dtype=torch.int64),
-                      2)
+        rows_backward(torch.zeros((4, 3)),
+                      torch.zeros((5,), dtype=torch.int64), 2)
     with pytest.raises(ValueError):
         rows_backward(torch.zeros((4,)), torch.zeros((4,), dtype=torch.int64),
                       2)
@@ -190,19 +206,6 @@ def card():
     return torch.device("cuda")
 
 
-def _depth(m, shared, sms):
-    """The most additions a row's sum passes through in the kernel: the
-    warp's tree (5 rounds), then on the shared path the warp-sums of one
-    block into its shared copy (its warps times each warp's 32-row
-    chunks) and the blocks' adds into the output; on the global path
-    every warp's add into the output."""
-    if not shared:
-        return 5 + math.ceil(m / 32)
-    blocks = launch_blocks(m, sms, True)
-    warps = THREADS // 32
-    return 5 + warps * math.ceil(m / (32 * warps * blocks)) + blocks
-
-
 # the inverse cell's shapes: its three levels' 1 + 2 + 2 M rays in one
 # call (5.24 M rows), into ico3_tex's vertices and diffuse colours; and
 # thai2's 20,049 triangles
@@ -211,34 +214,29 @@ CARD_CASES = [((608, 9), 5 * 2 ** 20, 0.5), ((5, 3), 5 * 2 ** 20, 0.9),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["shared", "global"])
 @pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "x".join(
     map(str, c[0])))
-def test_kernel_matches_the_plain_version(card, monkeypatch, case, path):
+def test_kernel_matches_the_plain_version(card, case):
     """Each row's error against the exact (float64) sum stays within the
-    worst case of a float32 sum as deep as the kernel's (`_depth` x
-    2^-24 x the row's sum of |values|, Higham's bound for any order of
-    additions: atomics add in an order that changes from run to run).
+    worst case of a float32 sum as deep as the kernel's sum of that row
+    (`sum_depth` of the row's own entries x 2^-24 x the row's sum of
+    |values|, Higham's bound for any order of additions: atomics add in
+    an order that changes from run to run).
     On the hot row 0, whose plain sum walks millions of values one after
     another, the kernel's error is no larger than the plain version's."""
     (n, c), m, hot = case
-    if path == "shared" and not shared_path(n, c):
-        pytest.skip("the table exceeds the shared path's budget")
-    monkeypatch.setattr(cuda_gather, "shared_path",
-                        lambda n_, c_: path == "shared")
     gen = torch.Generator().manual_seed(5)
     idx = torch.randint(0, n, (m,), generator=gen)
     idx[torch.rand((m,), generator=gen) < hot] = 0
     grad = torch.randn((m, c), generator=gen)
-    key = f"gather_rows.{path}"
+    key = "gather_rows.launches"
     before = profiling.counters()[key]
     got = rows_backward(grad.to(card), idx.to(card), n).cpu()
     assert profiling.counters()[key] == before + 1
     exact = rows_backward_plain(grad.double(), idx, n)
     plain = rows_backward_plain(grad, idx, n)
     scale = rows_backward_plain(grad.abs().double(), idx, n)
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
-    bound = _depth(m, path == "shared", sms) * U * scale
+    bound = sum_depth(torch.bincount(idx, minlength=n), m)[:, None] * U * scale
     err = (got.double() - exact).abs()
     assert (err <= bound).all(), float((err / bound.clamp(min=1e-300)).max())
     assert float(err[0].max()) <= float((plain.double() - exact)[0]
@@ -277,9 +275,9 @@ def test_gather_rows_gradient_on_the_card(card):
         out[str(dev)] = leaf.grad.cpu()
     scale = rows_backward_plain(w.reshape(50000, 9).abs().double(), idx,
                                 608).reshape(608, 3, 3)
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
     # each side within its own depth's bound of the exact sum; the CPU's
     # serial sum is at most as deep as the rows
-    bound = (_depth(50000, True, sms) + 50000) * U * scale
+    k = torch.bincount(idx, minlength=608)
+    bound = (sum_depth(k, 50000) + k)[:, None, None] * U * scale
     assert ((out["cuda"].double() - out["cpu"].double()).abs()
             <= bound).all()
